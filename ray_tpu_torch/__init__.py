@@ -1,0 +1,27 @@
+"""PyTorch + CUDA port of ray_tpu's LLM serving engine, for NVIDIA Hopper.
+
+The JAX package ``ray_tpu`` stays the reference; this package mirrors its
+layout (``ops/``, ``models/``, ``llm/``) so each module's counterpart is
+found at the same path. It imports torch, numpy and the standard library
+only. Hand-written CUDA kernels live under ``csrc/`` and are built with
+``nvcc`` at first use (see ``_build.py``).
+
+Entry points default to ``device="cuda"`` and raise when no GPU is
+present; pass ``device="cpu"`` to run the plain PyTorch versions.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: str | torch.device) -> torch.device:
+    """Turn ``device`` into a ``torch.device``; a CUDA device without a
+    GPU raises instead of falling back to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} requested but no CUDA GPU is available; "
+            "pass device='cpu' to run the plain PyTorch path"
+        )
+    return dev
