@@ -1,10 +1,11 @@
-"""PyTorch + CUDA port of ray_tpu's LLM serving engine, for NVIDIA Hopper.
+"""PyTorch + CUDA port of ray_tpu's LLM serving engine and single-device
+training step, for NVIDIA Hopper.
 
 The JAX package ``ray_tpu`` stays the reference; this package mirrors its
-layout (``ops/``, ``models/``, ``llm/``) so each module's counterpart is
-found at the same path. It imports torch, numpy and the standard library
-only. Hand-written CUDA kernels live under ``csrc/`` and are built with
-``nvcc`` at first use (see ``_build.py``).
+layout (``ops/``, ``models/``, ``llm/``, ``train/``) so each module's
+counterpart is found at the same path. It imports torch, numpy and the
+standard library only. Hand-written CUDA kernels live under ``csrc/`` and
+are built with ``nvcc`` at first use (see ``_build.py``).
 
 Entry points default to ``device="cuda"`` and raise when no GPU is
 present; pass ``device="cpu"`` to run the plain PyTorch versions.
@@ -25,3 +26,13 @@ def resolve_device(device: str | torch.device) -> torch.device:
             "pass device='cpu' to run the plain PyTorch path"
         )
     return dev
+
+
+def mesh_size(mesh) -> int:
+    """Number of devices in ``mesh`` (None is one device). Takes an object
+    with a ``size`` attribute or method, as a JAX mesh or a torch
+    ``DeviceMesh`` has."""
+    if mesh is None:
+        return 1
+    size = mesh.size
+    return int(size() if callable(size) else size)

@@ -22,7 +22,7 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "ray_tpu_torch"
-KERNELS = ("paged_attention", "flash_fwd")
+KERNELS = ("paged_attention", "flash_fwd", "flash_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -398,6 +398,12 @@ class LLMEngine:
                 self.alloc.register_prefix(hashes[i], pg)
             pages.append(pg)
         req.pages = pages
+        # Writes for the shared pages go to the dump page 0: a live request
+        # reads them, and the same tokens prefilled at another bucket length
+        # need not give byte-identical K/V on the card (cuBLAS tiles the two
+        # products differently), so a shared page is never rewritten.
+        write_pages = np.asarray([0] * len(shared) + pages[len(shared):],
+                                 np.int32)
         if (
             self.prefill_chunk is not None
             and len(context) > self.prefill_chunk
@@ -408,6 +414,7 @@ class LLMEngine:
                 "slot": slot,
                 "context": context,
                 "pages": np.asarray(pages, np.int32),
+                "write_pages": write_pages,
                 "next_start": 0,
                 "ctx_pad": -(-len(context) // P) * P,
                 "need_pages": need_pages,
@@ -416,12 +423,11 @@ class LLMEngine:
             return True
         tokens = np.zeros((1, pad), np.int32)
         tokens[0, : len(context)] = context
-        # Shared pages are rewritten with the same values (idempotent).
         logits, self.cache = self._prefill_paged(
             self.params,
             self._dev(tokens),
             self.cache,
-            self._dev(np.asarray(pages, np.int32)),
+            self._dev(write_pages),
             n_write_pages=need_pages,
         )
         self._post_prefill(req, slot, logits, len(context), finished)
@@ -446,6 +452,7 @@ class LLMEngine:
             start,
             n_write_pages=st["need_pages"],
             chunk_pages=(end - start) // P,
+            write_pages=self._dev(st["write_pages"]),
         )
         st["next_start"] = end
         self._stats["prefill_chunks"] += 1

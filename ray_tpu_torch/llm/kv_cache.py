@@ -20,6 +20,7 @@ from ray_tpu_torch.models.llama import (
     embed,
     layer_params,
     lm_logits,
+    project_qkv,
 )
 from ray_tpu_torch.ops.attention import causal_attention
 from ray_tpu_torch.ops.flash_attention import (
@@ -47,16 +48,6 @@ def init_kv_cache(
         "k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
         "v": torch.zeros(shape, dtype=cfg.dtype, device=dev),
     }
-
-
-def _project_qkv(x, p, cfg):
-    b, s, _ = x.shape
-    dt = cfg.dtype
-    h = rms_norm(x, p["attn_norm"])
-    q = (h @ p["wq"].to(dt)).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = (h @ p["wk"].to(dt)).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = (h @ p["wv"].to(dt)).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    return q, k, v
 
 
 def _mlp(x, p, cfg):
@@ -99,7 +90,7 @@ def forward_prefill(
     x = embed(params, tokens, cfg)
     for i in range(cfg.n_layers):
         p = layer_params(params, i)
-        q, k, v = _project_qkv(x, p, cfg)
+        q, k, v = project_qkv(x, p, cfg)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         attn = attend(q, k, v)
@@ -135,7 +126,7 @@ def forward_decode(
     x = embed(params, tokens, cfg)  # [B, 1, d]
     for i in range(cfg.n_layers):
         p = layer_params(params, i)
-        q, k, v = _project_qkv(x, p, cfg)  # q [B, 1, H, Dh]
+        q, k, v = project_qkv(x, p, cfg)  # q [B, 1, H, Dh]
         q = apply_rope(q, cos, sin, positions=positions[:, None])
         k = apply_rope(k, cos, sin, positions=positions[:, None])
         cache["k"][i, rows, positions] = k[:, 0].to(cfg.dtype)

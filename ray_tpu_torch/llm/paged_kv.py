@@ -23,12 +23,13 @@ import numpy as np
 import torch
 
 from ray_tpu_torch import resolve_device
-from ray_tpu_torch.llm.kv_cache import _mlp, _project_qkv
+from ray_tpu_torch.llm.kv_cache import _mlp
 from ray_tpu_torch.models.llama import (
     LlamaConfig,
     embed,
     layer_params,
     lm_logits,
+    project_qkv,
 )
 from ray_tpu_torch.ops.attention import causal_attention
 from ray_tpu_torch.ops.paged_attention import paged_attention
@@ -159,8 +160,9 @@ def paged_prefill(
     """Dense prompt pass; K/V scattered into ``pages`` of the pool.
 
     S_pad must equal n_write_pages * page_size. ``pages`` covers the whole
-    padded prompt including shared-prefix pages, which are rewritten with
-    the same values (K/V at position i depend only on tokens <= i).
+    padded prompt; the engine passes the dump page 0 for shared-prefix
+    pages, so their writes land there (attention here is dense over the
+    fresh K/V and does not read the pool).
     Returns (logits [1, S_pad, V] fp32, pool).
     """
     seq = tokens.shape[1]
@@ -172,7 +174,7 @@ def paged_prefill(
     x = embed(params, tokens, cfg)
     for i in range(cfg.n_layers):
         p = layer_params(params, i)
-        q, k, v = _project_qkv(x, p, cfg)
+        q, k, v = project_qkv(x, p, cfg)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         attn = causal_attention(q, k, v)
@@ -193,10 +195,13 @@ def paged_prefill_chunk(
     cfg: LlamaConfig,
     n_write_pages: int,
     chunk_pages: int,
+    write_pages: torch.Tensor,  # [n_write_pages] int: where K/V are written
 ):
     """One prefill chunk: K/V for positions start .. start+C-1 scattered
-    into the chunk's slice of ``pages``; each chunk query attends the
-    whole context so far. Returns (logits [1, C, V] fp32, pool)."""
+    into the chunk's slice of ``write_pages`` (``pages`` with the dump
+    page 0 in place of each shared-prefix page, which is never rewritten);
+    each chunk query attends the whole context so far through ``pages``.
+    Returns (logits [1, C, V] fp32, pool)."""
     c = tokens.shape[1]
     dev = tokens.device
     page_size = pool["k"].shape[3]
@@ -206,13 +211,13 @@ def paged_prefill_chunk(
     )
     pos = start + torch.arange(c, device=dev)[None, :]  # [1, C]
     pages = pages.long()
-    chunk = pages[start // page_size: start // page_size + chunk_pages]
+    chunk = write_pages.long()[start // page_size: start // page_size + chunk_pages]
     mask = torch.arange(window, device=dev)[None, None, :] > pos[:, :, None]
     x = embed(params, tokens, cfg)
     for i in range(cfg.n_layers):
         p = layer_params(params, i)
         k_pool, v_pool = pool["k"][i], pool["v"][i]
-        q, k, v = _project_qkv(x, p, cfg)  # [1, C, H, Dh]
+        q, k, v = project_qkv(x, p, cfg)  # [1, C, H, Dh]
         q = apply_rope(q, cos, sin, positions=pos)
         k = apply_rope(k, cos, sin, positions=pos)
         k_pool[chunk] = _to_pages(k, chunk_pages, page_size, cfg)
@@ -303,7 +308,7 @@ def paged_verify(
     for i in range(cfg.n_layers):
         p = layer_params(params, i)
         k_pool, v_pool = pool["k"][i], pool["v"][i]
-        q, k, v = _project_qkv(x, p, cfg)  # [B, K, H, Dh]
+        q, k, v = project_qkv(x, p, cfg)  # [B, K, H, Dh]
         q = apply_rope(q, cos, sin, positions=pos2d)
         k = apply_rope(k, cos, sin, positions=pos2d)
         # Advanced indices at dims 0 and 2 around a slice: the indexed

@@ -91,6 +91,7 @@ def test_paged_prefill_chunk_matches_reference(jparams, tparams):
         t_logits, tp = tpk.paged_prefill_chunk(
             tparams, torch.from_numpy(chunk), tp, torch.from_numpy(pages),
             start, cfg=CFG, n_write_pages=4, chunk_pages=2,
+            write_pages=torch.from_numpy(pages),
         )
         np.testing.assert_allclose(
             t_logits.numpy(), np.asarray(j_logits), **TOL
@@ -257,6 +258,33 @@ def test_engine_greedy_streams_match_reference(jparams, tparams, case):
         assert st["pages_free"] == st["pages_total"]
     if case == "preemption":
         assert st["preemptions"] > 0
+
+
+@pytest.mark.parametrize("prefill_chunk", [None, 16])
+def test_admission_never_rewrites_a_shared_page(tparams, prefill_chunk):
+    """A's first full prefix page is overwritten with a sentinel; B, which
+    shares it, is then admitted (whole or in chunks). The page still holds
+    the sentinel: B's writes for it went to the dump page."""
+    eng = LLMEngine(CFG, params=tparams, device="cpu", kv="paged",
+                    page_size=16, max_batch=2, max_seq=64,
+                    prefill_chunk=prefill_chunk)
+    eng.add_request(HEAD + [5, 6], SamplingParams(max_tokens=16))
+    for _ in range(4):  # 3 chunks of 16 at most
+        eng.step()
+    (req_a,) = eng._active.values()
+    page = req_a.pages[0]
+    for name in ("k", "v"):
+        eng.cache[name][:, page] = 1234.0
+    eng.add_request(HEAD + [9], SamplingParams(max_tokens=8))
+    for _ in range(4):
+        eng.step()
+    assert len(eng._active) == 2
+    req_b = next(r for r in eng._active.values() if r is not req_a)
+    assert req_b.pages[:2] == req_a.pages[:2]  # both full pages shared
+    for name in ("k", "v"):
+        assert bool((eng.cache[name][:, page] == 1234.0).all()), name
+    while eng.has_unfinished():
+        eng.step()
 
 
 def test_temperature_sampling_in_vocab_and_greedy_repeatable(tparams):

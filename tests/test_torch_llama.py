@@ -52,10 +52,13 @@ def test_config_and_presets_match_reference():
     for name in ("tiny", "mini", "bench", "llama3_8b"):
         j, t = jllama.PRESETS[name], PRESETS[name]
         for f in ("vocab_size", "d_model", "n_layers", "n_heads",
-                  "n_kv_heads", "d_ff", "max_seq", "rope_theta"):
+                  "n_kv_heads", "d_ff", "max_seq", "rope_theta", "remat",
+                  "attn_impl", "embed_impl"):
             assert getattr(t, f) == getattr(j, f), (name, f)
         assert t.head_dim == j.head_dim
         assert t.num_params() == j.num_params()
+        for seq in (1, 2048):
+            assert t.flops_per_token(seq) == j.flops_per_token(seq)
         assert str(t.dtype).split(".")[-1] == jnp.dtype(j.dtype).name
 
 
