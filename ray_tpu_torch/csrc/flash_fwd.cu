@@ -1,38 +1,54 @@
 // Flash-attention forward for Hopper (sm_90a): causal or full attention
 // with an online softmax; emits O and the per-row logsumexp.
 //
-// Replaces the Pallas TPU kernel ray_tpu/ops/pallas/flash_attention.py
-// (_fwd_kernel, launched by _fwd_call). Same contract: q arrives
-// pre-scaled and rounded to the storage dtype (the wrapper does it, as
-// _flash_impl does); query head h reads KV head h / n_rep; masked scores
-// use the finite -1e9 and the running max starts at -1e30; p is rounded to
-// v's dtype before the PV product; rows that see no key get O = 0 and
-// LSE = -inf. Unlike the TPU kernel it reads q/k/v and writes O in the
-// model's [B, S, H, D] layout directly (each row is D contiguous
-// elements), so no transposed copies are made, and S may be any length:
-// the ragged last tile is masked.
+// Replaces the Pallas TPU kernel ray_tpu/ops/pallas/flash_attention.py:48
+// (_fwd_kernel, pallas_call at :135). Same contract: q arrives pre-scaled
+// and rounded to the storage dtype (the wrapper does it, as _flash_impl
+// does); query head h reads KV head h / n_rep; masked scores use the finite
+// -1e9 and the running max starts at -1e30; p is rounded to v's dtype
+// before the PV product; rows that see no key get O = 0 and LSE = -inf.
+// Unlike the TPU kernel it reads q/k/v and writes O in the model's
+// [B, S, H, D] layout directly (each row is D contiguous elements), so no
+// transposed copies are made, and S may be any length: the ragged last
+// tile is masked.
 //
-// What bounds it on the H100: operations. A causal pass does
-// 2 * S^2 * D * H flops against O(S * D * H) bytes, hundreds of flops per
-// byte at S >= 512. The design keeps the S x S scores out of device memory:
+// What bounds it on the H100: operations, 4 * B * H * D * S(S+1)/2 flops
+// causal (q . k^T and p . v) against O(S * D * H) bytes, hundreds of flops
+// per byte at S >= 512. Two instantiations:
 //
-// - one block of 256 threads per (b * h, 64-row q tile); it walks the kv
-//   tiles of 64 keys up to the diagonal only (tiles above it are never
-//   loaded) and masks only the diagonal tile and the ragged last tile;
-// - each thread owns a 4 x 4 patch of the score tile and a 4 x (D/16)
-//   patch of the O accumulator, both in registers; the 16 threads that
-//   share a row are one half-warp, so row max and row sum are shuffles;
-// - q and K tiles sit in shared memory as fp32 with a padded row stride,
-//   so the 16 lanes of a half-warp read 16 different banks.
+// bf16 (flash_fwd_wgmma_kernel, both main paths): the tensor cores.
+// - One block of two warpgroups per (b * h, 128-row query tile), the
+//   heaviest causal tiles launched first; each warpgroup owns 64 rows.
+// - K and V tiles of 128 keys stream through a two-stage cp.async ring
+//   (the next tile loads while this one is multiplied), only up to the
+//   diagonal when causal, into the 128-byte-swizzled layout of
+//   wgmma_tile.cuh.
+// - S = q . k^T is wgmma m64n128k16 from shared memory (both K-major);
+//   the online softmax runs on the accumulator fragment (a row lives in
+//   the 4 threads of a quad: two shuffles), with exp2 and log2(e) folded
+//   in, LSE still in natural log; only tiles the diagonal crosses and the
+//   ragged last tile are masked.
+// - p is rounded to bf16 in registers and is the A operand of the p . v
+//   wgmma (v read MN-major through the transpose bit): s and p never touch
+//   shared memory.
+// Not yet done: warp specialisation (a producer warp issuing TMA), the
+// overlap of one tile's softmax with the next tile's q . k^T, and a
+// persistent grid (ROADMAP.md, Queue 2).
 //
-// This first version multiplies with scalar fp32 FMAs, far from the
-// 989 TFLOP/s bf16 tensor-core rate that bounds the work. wgmma on the
-// q/K and p/V tiles, with TMA loads, is the next step.
+// fp32 (flash_fwd_kernel): scalar FMAs, one block of 256 threads per
+// (b * h, 64-row q tile), each thread a 4 x 4 patch of the scores and a
+// 4 x (D/16) patch of O. wgmma takes no fp32 input and TF32 would change
+// the answer, so fp32 callers get this kernel; neither main path launches
+// it. It shares no tile code with the bf16 kernel and proves nothing about
+// it: the bf16 kernel is held to its own plain version, at a tolerance set
+// from its measured error (chip_smoke.py).
 
 #include <cmath>
 #include <cstddef>
 
 #include "common.cuh"
+#include "wgmma_tile.cuh"
+
 
 namespace rtt {
 namespace {
@@ -203,13 +219,220 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------- bf16, tensor cores
+namespace wg {
+
+constexpr int kThreads = 256;  // two warpgroups
+constexpr int TQ = 128;        // query rows per block, 64 per warpgroup
+constexpr int TK = 128;        // keys per K/V tile
+constexpr int kTile = tile::tile_bytes(128);  // one [128, 128] bf16 tile
+// q, then two ring stages of (k, v); plus the alignment slack.
+constexpr int kSmem = 5 * kTile + tile::kAtomBytes;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// s = q . k^T for this warpgroup's 64 rows and a 128-key tile: 8 steps
+// over D, q and k both K-major. Started, not waited for.
+__device__ __forceinline__ void start_scores(float (&s)[64], const uint8_t* q_s,
+                                             const uint8_t* ks, int wg) {
+  using namespace tile;
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_m64n128k16_ss<0, 0>(s, desc_k_major(q_s, TQ, 64 * wg, kk),
+                              desc_k_major(ks, TK, 0, kk), 1);
+  wgmma_commit();
+}
+
+// o += p . v over a 128-key tile: p as bf16 registers, v MN-major.
+// Started, not waited for.
+__device__ __forceinline__ void start_pv(float (&o)[64],
+                                         const uint32_t (&p)[8][4],
+                                         const uint8_t* vs) {
+  using namespace tile;
+#pragma unroll
+  for (int kk = 0; kk < TK / 16; ++kk)
+    wgmma_m64n128k16_rs<1>(o, p[kk], desc_mn_major(vs, TK, 0, kk), 1);
+  wgmma_commit();
+}
+
+// Mask (when `diag`, or in the ragged last tile) and the online softmax of
+// one score tile on its fragment: row r's values are s[4 j + 2 r + e] in
+// the four threads of a quad (two shuffles per reduction). s becomes p;
+// m and l move on; alpha[r] is what o's row r must be scaled by.
+__device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2],
+                                             float (&l)[2], float (&alpha)[2],
+                                             int k0, int qrow, int col,
+                                             int seq, bool diag) {
+  if (diag || k0 + TK > seq) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int key = k0 + 8 * (i >> 2) + col + (i & 1);
+      const int qpos = qrow + 8 * ((i >> 1) & 1);
+      if (key >= seq || (diag && key > qpos)) s[i] = kMask;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = s[2 * r];
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+    mx = group_max<4>(mx);
+    const float m_new = fmaxf(m[r], mx);
+    const float ml = m_new * kLog2e;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float pv = exp2f(fmaf(s[4 * j + 2 * r + e], kLog2e, -ml));
+        s[4 * j + 2 * r + e] = pv;
+        sum += pv;
+      }
+    sum = group_sum<4>(sum);
+    alpha[r] = exp2f((m[r] - m_new) * kLog2e);
+    l[r] = alpha[r] * l[r] + sum;
+    m[r] = m_new;
+  }
+}
+
+__device__ __forceinline__ void rescale(float (&o)[64], const float (&alpha)[2]) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      o[4 * j + 2 * r] *= alpha[r];
+      o[4 * j + 2 * r + 1] *= alpha[r];
+    }
+}
+
+__global__ void __launch_bounds__(kThreads, 1) flash_fwd_wgmma_kernel(
+    const __nv_bfloat16* __restrict__ q,  // [B, S, H, 128], pre-scaled
+    const __nv_bfloat16* __restrict__ k,  // [B, S, Hkv, 128]
+    const __nv_bfloat16* __restrict__ v,  // [B, S, Hkv, 128]
+    __nv_bfloat16* __restrict__ out,      // [B, S, H, 128]
+    float* __restrict__ lse,              // [B * H, S]
+    int seq, int n_heads, int n_kv, int causal) {
+  using namespace tile;
+  constexpr int D = 128;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* q_s = align_smem(smem_raw);
+  uint8_t* k_s = q_s + kTile;      // stage i at k_s + i * kTile
+  uint8_t* v_s = k_s + 2 * kTile;  // stage i at v_s + i * kTile
+
+  const int bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // heaviest causal tiles first
+  const int b = bh / n_heads, h = bh % n_heads;
+  const int hk = h / (n_heads / n_kv);
+  const int q0 = qt * TQ;
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int lane = tid & 31;
+  const int col = 2 * (lane & 3);  // accumulator columns 8 j + col + {0, 1}
+  // This thread's query rows: qrow and qrow + 8.
+  const int qrow = q0 + 64 * wg + 16 * ((tid >> 5) & 3) + (lane >> 2);
+
+  const size_t q_row = (size_t)n_heads * D;  // stride between positions
+  const size_t kv_row = (size_t)n_kv * D;
+  const __nv_bfloat16* qb = q + (size_t)b * seq * q_row + (size_t)h * D;
+  const __nv_bfloat16* kb = k + (size_t)b * seq * kv_row + (size_t)hk * D;
+  const __nv_bfloat16* vb = v + (size_t)b * seq * kv_row + (size_t)hk * D;
+
+  int n_kt = (seq + TK - 1) / TK;
+  if (causal) n_kt = min(n_kt, (q0 + TQ - 1) / TK + 1);
+
+  load_tile<TQ, kThreads>(q_s, qb, q_row, q0, seq, tid);
+  load_tile<TK, kThreads>(k_s, kb, kv_row, 0, seq, tid);
+  load_tile<TK, kThreads>(v_s, vb, kv_row, 0, seq, tid);
+  cp_async_commit();
+
+  float o[64];
+  float m[2] = {kMInit, kMInit}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * TK;
+    const uint8_t* ks = k_s + (kt & 1) * kTile;
+    const uint8_t* vs = v_s + (kt & 1) * kTile;
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();  // tile kt has landed; tile kt - 1 is no longer read
+    if (kt + 1 < n_kt) {  // the next tile loads while this one is used
+      load_tile<TK, kThreads>(k_s + ((kt + 1) & 1) * kTile, kb, kv_row,
+                              k0 + TK, seq, tid);
+      load_tile<TK, kThreads>(v_s + ((kt + 1) & 1) * kTile, vb, kv_row,
+                              k0 + TK, seq, tid);
+      cp_async_commit();
+    }
+
+    float s[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) s[i] = 0.f;
+    fence_regs(s);
+    wgmma_fence();
+    start_scores(s, q_s, ks, wg);
+    wgmma_wait<0>();
+    fence_regs(s);
+    float alpha[2];
+    softmax_tile(s, m, l, alpha, k0, qrow, col, seq,
+                 causal && k0 + TK - 1 > q0 + 64 * wg);
+    rescale(o, alpha);
+    uint32_t p[8][4];
+    acc_to_a<128>(s, p);
+    fence_regs(o);
+    wgmma_fence();
+    start_pv(o, p, vs);
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_words(p);
+  }
+
+  __nv_bfloat16* ob = out + (size_t)b * seq * q_row + (size_t)h * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int s_pos = qrow + 8 * r;
+    if (s_pos >= seq) continue;
+    const float denom = l[r] == 0.f ? 1.f : l[r];
+    __nv_bfloat16* orow = ob + (size_t)s_pos * q_row + col;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+          __floats2bfloat162_rn(o[4 * j + 2 * r] / denom,
+                                o[4 * j + 2 * r + 1] / denom);
+    if ((lane & 3) == 0)
+      lse[(size_t)bh * seq + s_pos] =
+          l[r] == 0.f ? -INFINITY : m[r] + logf(denom);
+  }
+}
+
+cudaError_t launch(const void* q, const void* k, const void* v, void* out,
+                   void* lse, int batch, int seq, int n_heads, int n_kv,
+                   int causal, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(batch * n_heads, (seq + TQ - 1) / TQ);
+  flash_fwd_wgmma_kernel<<<grid, kThreads, kSmem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v),
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), seq,
+      n_heads, n_kv, causal);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
+
 // The one head size built: that of the models the port serves on the card.
 constexpr int kHeadDim = 128;
 
 }  // namespace
 }  // namespace rtt
 
-// C entry point bound with ctypes. Returns the launch's cudaError_t.
+// C entry point bound with ctypes. Returns the launch's cudaError_t. The
+// dtype picks the kernel: bf16 always takes the tensor-core kernel, fp32
+// the scalar one.
 extern "C" int rtt_flash_fwd(int dtype, const void* q, const void* k,
                              const void* v, void* out, void* lse, int batch,
                              int seq, int n_heads, int n_kv, int head_dim,
@@ -220,7 +443,7 @@ extern "C" int rtt_flash_fwd(int dtype, const void* q, const void* k,
     return rtt::launch<float, rtt::kHeadDim>(q, k, v, out, lse, batch, seq,
                                              n_heads, n_kv, causal, s);
   if (dtype == rtt::kBFloat16)
-    return rtt::launch<__nv_bfloat16, rtt::kHeadDim>(
-        q, k, v, out, lse, batch, seq, n_heads, n_kv, causal, s);
+    return rtt::wg::launch(q, k, v, out, lse, batch, seq, n_heads, n_kv,
+                           causal, s);
   return cudaErrorInvalidValue;
 }

@@ -10,6 +10,11 @@ and the fp32 logsumexp [B * H, 1, S]; the backward (``csrc/flash_bwd.cu``)
 recomputes the probabilities from that logsumexp and returns dq, dk, dv
 with dk and dv summed over each KV group.
 
+Both kernels pick their route by dtype: bf16 runs on the tensor cores
+(``wgmma``, tiles laid out by ``csrc/wgmma_tile.cuh``; the backward is
+one fused pass whose dq is summed with fp32 atomics, so bf16 dq is not
+bit-reproducible run to run), fp32 on scalar FMAs.
+
 :func:`flash_attention` is differentiable: it saves (q, k, v, O, LSE) as
 ``_flash_fwd`` does, and its backward launches the backward kernel once,
 never the forward again, so a remat mode that keeps them across its
@@ -46,8 +51,10 @@ def _fit_block(requested: int, s: int) -> int:
 
 def _prescale(q: torch.Tensor, scale: float) -> torch.Tensor:
     """q * scale in fp32, rounded to q's dtype (the reference's one
-    rounding of q when the scale is not a power of two)."""
-    return (q.float() * scale).to(q.dtype)
+    rounding of q when the scale is not a power of two). PyTorch computes
+    a bf16 product in fp32 and rounds it once, so one op gives the same
+    bits as the fp32 round trip without its two fp32 copies of q."""
+    return q * scale
 
 
 def _scores(qs, k, n_rep, causal):
@@ -207,7 +214,7 @@ def _bwd_kernel():
     fn.restype = ctypes.c_int
     fn.argtypes = (
         [ctypes.c_int]
-        + [ctypes.c_void_p] * 9
+        + [ctypes.c_void_p] * 11
         + [ctypes.c_int] * 6
         + [ctypes.c_float, ctypes.c_void_p]
     )
@@ -226,8 +233,8 @@ def flash_attention_backward(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of the attention that produced (o, lse). A CPU tensor
     takes :func:`flash_attention_backward_reference`; a CUDA tensor
-    launches ``csrc/flash_bwd.cu`` (its two passes, counted as one launch
-    in ``flash_attention_backward.launches``) or raises.
+    launches ``csrc/flash_bwd.cu`` (its kernels, counted as one launch in
+    ``flash_attention_backward.launches``) or raises.
 
     Replaces ``_bwd_kernel`` of ray_tpu/ops/pallas/flash_attention.py. It
     is bound by operations, 10 * B * H * D * S(S+1)/2 flops causal (five
@@ -247,16 +254,22 @@ def flash_attention_backward(
                          f"[{b * h}, 1, {s}], got {tuple(lse.shape)} "
                          f"{lse.dtype}")
     scale = d**-0.5 if scale is None else scale
+    code = _build.dtype_code(q.dtype)
     qs = _prescale(q, scale).contiguous()
-    k, v, do, lse = (t.contiguous() for t in (k, v, do, lse))
-    # delta = rowsum(dO * O) in fp32, [B * H, S] like the logsumexp.
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    k, v, o, do, lse = (t.contiguous() for t in (k, v, o, do, lse))
     dq, dk, dv = (torch.empty_like(t) for t in (qs, k, v))
+    # Scratch the kernels fill: delta = rowsum(dO * O) in fp32, [B * H, S]
+    # like the logsumexp; for bf16 the fp32 dq accumulator of the fused
+    # pass's atomics.
+    delta = torch.empty((b * h, s), dtype=torch.float32, device=q.device)
+    dq_acc = (torch.empty(q.shape, dtype=torch.float32, device=q.device)
+              if q.dtype == torch.bfloat16 else None)
     err = _bwd_kernel()(
-        _build.dtype_code(q.dtype), qs.data_ptr(), k.data_ptr(),
-        v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, h, hkv, d,
-        int(causal), scale, torch.cuda.current_stream(q.device).cuda_stream,
+        code, qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        o.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        None if dq_acc is None else dq_acc.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, s, h, hkv, d, int(causal), scale,
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "flash_attention_backward")
     flash_attention_backward.launches += 1
