@@ -24,7 +24,9 @@ Phase 1  holds each kernel against its plain PyTorch versions on the card:
          FLASH_BF16_TOL, FLASH_BF16_NORM) and fp32 (the scalar ones); the
          bf16 backward runs twice on the same inputs and its run-to-run
          max |ddq| must stay within one bf16 step (dq is summed with
-         atomics).
+         atomics). The same at moe_bench's 16 / 8 heads of head_dim 64,
+         and in bf16 at the bench_8b.py recipe's B=2 S=4096 with 32 / 8
+         heads of 128; a head_dim of 96 must be refused.
 Phase 2  serves 8 requests on a paged LLMEngine at full llama3_8b width
          and depth (random bf16 weights from a seed), greedy, then 8
          repetitive prompts with speculate=3; checks the paged kernel's
@@ -41,22 +43,35 @@ Phase 4  frees the serving model and trains the bench preset (24 layers,
          bf16 compute, AdamW with a bf16 first moment) on 16 x 2049
          tokens: two warm-up steps and four timed ones; checks the
          losses and gradient norms and the launches (24 forward + 24
-         backward per step; 48 forward under remat "full"), profiles one
-         step (every flash_fwd* kernel counts as F1, every flash_bwd*
+         backward per step); runs a forward + backward in each of the
+         eight remat modes on the same weights (time of the second of two
+         calls, peak memory, launches per F1_PER_LAYER: 48 forward under
+         "full", "attn" and "dots"; loss against flash_qkv's); profiles
+         one step (every flash_fwd* kernel counts as F1, every flash_bwd*
          kernel as F2; either at 0 ms fails), and holds one batch-2
          gradient step through the kernels against one through the plain
          dense attention, in bf16 and fp32.
+Phase 5  trains moe_bench at full width and depth (6 layers, d 1024, 16 / 8
+         heads of 64, 4 experts, top-2; remat "full") on 16 x 2049
+         tokens: 12 forward + 6 backward flash launches per step, a
+         falling loss and a positive aux loss; profiles one step; holds
+         moe_ffn in fp32 to the dense top-k ensemble (the reference's
+         oracle).
+Phase 6  the bench_8b.py recipe: 4 full llama3_8b layers, vocab 8192,
+         remat "full", 2 x 4097 tokens, 2 warm-up and 5 timed steps.
 Timing   each kernel at the main path's shapes (CUDA events, cold L2):
          its time, its plain version's, its bound (P1 also at the verify
          step's K = 4 and at batch 64, on lines of their own), and for the flash
          kernels the time of PyTorch's scaled_dot_product_attention
          (forward; forward + backward minus forward for the backward).
 
-Prints a ``{"kernels": [...]}`` line (the flash forward twice: "flash_fwd"
-at the prefill's shape, "flash_fwd_train" at the training step's, each
-with its own launches and error), the card's name and power limit,
-and as the last line ``{"ok": true, "device": {...}}``. Any failed check
-exits non-zero; without a CUDA device it exits 1 before any phase.
+Prints a ``{"kernels": [...]}`` line (the flash forward three times:
+"flash_fwd" at the prefill's shape, "flash_fwd_train" at the bench
+training step's, "flash_fwd_train_d64" at moe_bench's; the backward twice,
+"flash_bwd" and "flash_bwd_d64"; each with its own launches and error),
+the card's name and power limit, and as the last line
+``{"ok": true, "device": {...}}``. Any failed check exits non-zero;
+without a CUDA device it exits 1 before any phase.
 """
 
 from __future__ import annotations
@@ -64,6 +79,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import gc
+import importlib
 import json
 import math
 import re
@@ -341,37 +357,80 @@ def phase1(device="cuda"):
                 compare(label + " LSE", lse, lse_ref, 1e-4, 1e-4)
                 if dtype == torch.bfloat16:
                     errs["flash"] = max(errs["flash"], e)
-    for key, e in flash_bwd_checks(tol, device).items():
-        errs[key] = max(errs.get(key, 0.0), e)
+    # The bench preset's heads (F1/F2 at head_dim 128), moe_bench's (head
+    # dim 64: the training shape, ragged S, fp32) and the bench_8b.py
+    # recipe's llama3_8b layers at B=2 S=4096 (bf16, its main path).
+    for kw in (dict(),
+               dict(heads=MOE_HEADS, tag="_d64"),
+               dict(heads=LLAMA8B_HEADS, shapes=((2, 4096),),
+                    dtypes=(torch.bfloat16,), train=(2, 4096), tag="_8b")):
+        for key, e in flash_bwd_checks(tol, device, **kw).items():
+            errs[key] = max(errs.get(key, 0.0), e)
+    if device == "cuda":
+        head_dim_refused()
     return errs
 
 
+def head_dim_refused():
+    """A CUDA tensor of a head size the kernels are not built for (96)
+    raises in both wrappers, and the C entry points refuse it too."""
+    # The module, not the function the package re-exports under its name.
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    q = torch.zeros((1, 128, 2, 96), dtype=torch.bfloat16, device="cuda")
+    lse = torch.zeros((2, 1, 128), device="cuda")
+    for call in (lambda: fa.flash_attention_forward(q, q, q),
+                 lambda: fa.flash_attention_backward(q, q, q, q, lse, q)):
+        try:
+            call()
+        except ValueError as e:
+            check("head_dim" in str(e), f"head_dim 96 refused for {e}")
+        else:
+            raise SmokeFailure("a head_dim 96 CUDA tensor was not refused")
+    stream = torch.cuda.current_stream().cuda_stream
+    err = fa._kernel()(1, *(q.data_ptr(),) * 4, lse.data_ptr(), 1, 128, 2,
+                       2, 96, 1, stream)
+    check(err != 0, "rtt_flash_fwd accepted head_dim 96")
+    print(f"  head_dim 96: both wrappers raise, rtt_flash_fwd returns {err}")
+
+
 def flash_inputs(b, s, dtype, seed, h=8, hkv=4, d=128, device="cuda"):
-    """q, k, v and a gradient dO at the bench preset's head layout, drawn
-    on the device from ``seed``."""
+    """q, k, v and a gradient dO (by default at the bench preset's head
+    layout), drawn on the device from ``seed``."""
     g = torch.Generator(device=device).manual_seed(seed)
     shapes = ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d), (b, s, h, d))
     return [torch.randn(sh, generator=g, device=device).to(dtype)
             for sh in shapes]
 
 
-def flash_bwd_checks(tol, device="cuda"):
-    """At the bench preset's heads (8 query, 4 KV): the forward kernel's O
-    and LSE against its plain version, then dq, dk, dv of the backward
-    kernel against its plain version on those same O and LSE, at the
-    flash tolerances of phase 1 (bf16: ``FLASH_BF16_TOL`` per element and
-    ``FLASH_BF16_NORM``; fp32: 1e-4, the same arithmetic in another
-    summation order).
+# (query heads, KV heads, head_dim) of the training paths: the bench
+# preset, moe_bench (and mini), llama3_8b (the bench_8b.py recipe).
+BENCH_HEADS, MOE_HEADS, LLAMA8B_HEADS = (8, 4, 128), (16, 8, 64), (32, 8, 128)
+# Shapes (B, S) of the flash checks: the training step's 16 x 2048, a
+# ragged last tile (1000), a ragged second 128-row tile (200) and less
+# than one tile (64).
+FLASH_SHAPES = ((16, 2048), (2, 1000), (2, 512), (2, 200), (2, 64))
+
+
+def flash_bwd_checks(tol, device="cuda", heads=BENCH_HEADS,
+                     shapes=FLASH_SHAPES, dtypes=(torch.bfloat16,
+                                                  torch.float32),
+                     train=(16, 2048), tag=""):
+    """At one head layout (by default the bench preset's 8 query, 4 KV
+    heads of 128): the forward kernel's O and LSE against its plain
+    version, then dq, dk, dv of the backward kernel against its plain
+    version on those same O and LSE, at the flash tolerances of phase 1
+    (bf16: ``FLASH_BF16_TOL`` per element and ``FLASH_BF16_NORM``; fp32:
+    1e-4, the same arithmetic in another summation order).
 
     The bf16 backward sums dq with fp32 atomics in no fixed order: it
     runs a second time on the same inputs, and the largest |ddq| between
     the two runs must stay within 2^-8 * max |dq| (fp32 sums in two
     orders, each rounded once to bf16, differ by at most one bf16 step).
 
-    Returns the worst bf16 errors: "flash_train" (forward O at the
-    training step's B=16 S=2048), "flash" (forward O at the other shapes)
-    and "flash_bwd" (dq, dk, dv at every shape), and "dq_spread" (the
-    largest run-to-run |ddq|)."""
+    Returns the worst bf16 errors, each key ending in ``tag``:
+    "flash_train" (forward O at the shape ``train``), "flash" (forward O
+    at the other shapes) and "flash_bwd" (dq, dk, dv at every shape), and
+    "dq_spread" (the largest run-to-run |ddq|)."""
     from ray_tpu_torch.ops.flash_attention import (
         flash_attention_backward,
         flash_attention_backward_reference,
@@ -379,18 +438,18 @@ def flash_bwd_checks(tol, device="cuda"):
         flash_attention_reference,
     )
 
-    worst = {"flash_train": 0.0, "flash": 0.0, "flash_bwd": 0.0,
-             "dq_spread": 0.0}
-    for dtype in (torch.bfloat16, torch.float32):
+    h, hkv, d = heads
+    worst = {f"flash_train{tag}": 0.0, f"flash{tag}": 0.0,
+             f"flash_bwd{tag}": 0.0, "dq_spread": 0.0}
+    for dtype in dtypes:
         atol, rtol = tol[dtype]
         norm = FLASH_BF16_NORM if dtype == torch.bfloat16 else None
-        # 16 x 2048: the training step's shape; 1000: a ragged last tile;
-        # 200: a ragged second 128-row tile; 64: less than one tile.
-        for b, s in ((16, 2048), (2, 1000), (2, 512), (2, 200), (2, 64)):
-            q, k, v, do = flash_inputs(b, s, dtype, seed=s, device=device)
-            fwd_key = "flash_train" if (b, s) == (16, 2048) else "flash"
+        for b, s in shapes:
+            q, k, v, do = flash_inputs(b, s, dtype, seed=s, h=h, hkv=hkv,
+                                       d=d, device=device)
+            fwd_key = ("flash_train" if (b, s) == train else "flash") + tag
             for causal in (True, False):
-                label = (f"B={b} S={s} H=8/4 causal={causal} "
+                label = (f"B={b} S={s} H={h}/{hkv} D={d} causal={causal} "
                          f"{str(dtype)[6:]}")
                 o, lse = flash_attention_forward(q, k, v, causal)
                 o_ref, lse_ref = flash_attention_reference(q, k, v, causal)
@@ -411,7 +470,8 @@ def flash_bwd_checks(tol, device="cuda"):
                 )
                 if dtype == torch.bfloat16:
                     worst[fwd_key] = max(worst[fwd_key], e_fwd)
-                    worst["flash_bwd"] = max(worst["flash_bwd"], e_bwd)
+                    worst["flash_bwd" + tag] = max(worst["flash_bwd" + tag],
+                                                   e_bwd)
                     again = flash_attention_backward(q, k, v, o, lse, do,
                                                      causal)[0]
                     spread = float((again.float() - got[0].float()).abs()
@@ -833,26 +893,27 @@ def time_ce_and_optimizer(cfg, opt, state, batch, seq):
     return ce_ms, opt_ms
 
 
-def phase4(seed, device="cuda", batch=16, seq=2048, warmup=2, steps=4):
-    from ray_tpu_torch.models.llama import PRESETS
+def train_run(cfg, seed, device, batch, seq, warmup, steps, f1, f2, label):
+    """``warmup`` + ``steps`` train steps of ``cfg`` (fp32 parameters from
+    ``seed``, AdamW with a bf16 first moment) on one batch of ``batch`` x
+    ``seq + 1`` tokens drawn from the seed, each ending in a sync; every
+    step must launch the flash forward ``f1`` and the backward ``f2``
+    times. Returns the state, the step function, the batch, per-step
+    losses (and MoE aux losses), the mean timed step, its tokens/s, the
+    peak memory of the timed steps and the launches of all steps."""
     from ray_tpu_torch.train.step import (
         init_train_state,
         jit_train_step,
         make_optimizer,
     )
 
-    print("phase 4: training, bench preset")
-    cfg = dataclasses.replace(PRESETS["bench"], attn_impl="flash")
-    n = cfg.n_layers
     opt = make_optimizer(total_steps=1000, mu_dtype=torch.bfloat16)
     state = init_train_state(cfg, opt, seed=seed, device=device)
     step = jit_train_step(cfg, opt)
     rng = np.random.default_rng(seed)
-    tokens = torch.from_numpy(
-        rng.integers(0, cfg.vocab_size, (batch, seq + 1))
-    ).to(device)
-    data = {"tokens": tokens}
-    losses, norms, wall = [], [], []
+    data = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (batch, seq + 1))).to(device)}
+    losses, aux, norms, wall = [], [], [], []
     launches = [0, 0]
     for i in range(warmup + steps):
         if i == warmup:
@@ -862,59 +923,210 @@ def phase4(seed, device="cuda", batch=16, seq=2048, warmup=2, steps=4):
         state, m = step(state, data)
         sync()
         dt = time.perf_counter() - t0
-        _, f1, f2 = counts()
-        check(f1 == n and f2 == n,
-              f"train step {i}: {f1} forward and {f2} backward flash "
-              f"launches for {n} layers under remat flash_qkv")
-        launches[0] += f1
-        launches[1] += f2
+        _, n1, n2 = counts()
+        check(n1 == f1 and n2 == f2,
+              f"{label} step {i}: {n1} forward and {n2} backward flash "
+              f"launches, expected {f1} and {f2}")
+        launches[0] += n1
+        launches[1] += n2
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
+        if "aux_loss" in m:
+            aux.append(float(m["aux_loss"]))
         if i >= warmup:
             wall.append(dt)
-        print(f"  step {i}: loss {losses[-1]:.4f}, grad_norm "
-              f"{norms[-1]:.4f}, {dt * 1e3:.1f} ms, flash launches "
-              f"{f1} + {f2}")
-    peak = torch.cuda.max_memory_allocated()
-    check(all(math.isfinite(x) for x in losses + norms),
-          "a loss or gradient norm is not finite")
+        print(f"  step {i}: loss {losses[-1]:.4f}"
+              + (f", aux_loss {aux[-1]:.5f}" if aux else "")
+              + f", grad_norm {norms[-1]:.4f}, {dt * 1e3:.1f} ms, flash "
+              f"launches {n1} + {n2}")
+    check(all(math.isfinite(x) for x in losses + norms + aux),
+          f"{label}: a loss or gradient norm is not finite")
     check(abs(losses[0] - math.log(cfg.vocab_size)) < 0.5,
-          f"step 0 loss {losses[0]:.4f} is not within 0.5 of "
+          f"{label}: step 0 loss {losses[0]:.4f} is not within 0.5 of "
           f"ln {cfg.vocab_size} = {math.log(cfg.vocab_size):.4f}")
     step_s = sum(wall) / len(wall)
-    tps = batch * seq / step_s
+    return dict(state=state, step=step, data=data, opt=opt, losses=losses,
+                aux=aux, step_s=step_s, tps=batch * seq / step_s,
+                peak=torch.cuda.max_memory_allocated(), launches=launches)
+
+
+def phase4(seed, device="cuda", batch=16, seq=2048, warmup=2, steps=4):
+    from ray_tpu_torch.models.llama import PRESETS
+
+    print("phase 4: training, bench preset")
+    cfg = dataclasses.replace(PRESETS["bench"], attn_impl="flash")
+    n = cfg.n_layers
+    r = train_run(cfg, seed, device, batch, seq, warmup, steps, n, n,
+                  "remat flash_qkv")
+    state, step, data, opt = r["state"], r["step"], r["data"], r["opt"]
+    step_s, tps, peak = r["step_s"], r["tps"], r["peak"]
     share = tps * cfg.flops_per_token(seq) / BF16_FLOPS
     print(f"  train: {tps:.1f} tokens/s ({step_s * 1e3:.1f} ms per step of "
           f"{batch} x {seq} tokens, {cfg.flops_per_token(seq) / 1e9:.3f} "
           f"GFLOP/token), {share:.2%} of the dense bf16 peak; peak memory "
           f"{peak / 2**30:.2f} GiB")
 
-    # Full remat replays every layer's forward kernel in backward.
-    full = jit_train_step(dataclasses.replace(cfg, remat="full"), opt)
-    reset_counts()
-    t0 = time.perf_counter()
-    state, m = full(state, data)
-    sync()
-    full_s = time.perf_counter() - t0
-    _, f1, f2 = counts()
-    check(f1 == 2 * n and f2 == n,
-          f"remat full: {f1} forward and {f2} backward flash launches for "
-          f"{n} layers")
-    check(math.isfinite(float(m["loss"])), "remat full: non-finite loss")
-    print(f"  remat full: one step {full_s * 1e3:.1f} ms, flash launches "
-          f"{f1} + {f2}")
-
+    modes = remat_modes(cfg, state.params, data)
     state, prof = profile_train(step, state, data, step_s)
     ce_ms, opt_ms = time_ce_and_optimizer(cfg, opt, state, batch, seq)
     # The same weights through the kernels and through the plain dense
     # attention, at batch 2 (the dense path keeps [B, H, S, S] scores).
-    grad_err = grad_step_checks(cfg, state.params, tokens[:2])
-    return {"cfg": cfg, "f1_launches": launches[0],
-            "f2_launches": launches[1], "tokens_per_s": tps,
+    grad_err = grad_step_checks(cfg, state.params, data["tokens"][:2])
+    return {"cfg": cfg, "f1_launches": r["launches"][0],
+            "f2_launches": r["launches"][1], "tokens_per_s": tps,
             "peak_share": share, "step_ms": step_s * 1e3,
-            "full_step_ms": full_s * 1e3, "peak_gib": peak / 2**30,
-            "losses": losses, "profile": prof, "ce_ms": ce_ms,
-            "opt_ms": opt_ms, "grad_err": grad_err}
+            "peak_gib": peak / 2**30,
+            "losses": r["losses"], "profile": prof, "ce_ms": ce_ms,
+            "opt_ms": opt_ms, "grad_err": grad_err, "modes": modes}
+
+
+# Flash forward launches per layer in one forward + backward of each remat
+# mode (models/llama.py): the modes that keep the flash outputs never
+# replay the forward kernel.
+F1_PER_LAYER = {"none": 1, "full": 2, "attn": 2, "flash": 1, "dots": 2,
+                "flash_qkv": 1, "flash_qkv_ffn": 1, "flash_qkv_ffn8": 1}
+
+
+def remat_modes(cfg, params, data,
+                modes=("flash_qkv", "full", "attn", "flash", "dots",
+                       "flash_qkv_ffn", "flash_qkv_ffn8", "none")):
+    """Forward + backward (``grad_step``, no optimizer update) of each
+    remat mode on the same weights and batch, twice: the second call is
+    timed (wall, ending in a sync), the peak memory is that of both, and
+    each call must launch F1_PER_LAYER forwards and one backward per
+    layer. Every exact mode's loss equals flash_qkv's to 1e-3 relative (the
+    same forward operations; bf16 noise); flash_qkv_ffn8's within 2%, the
+    reference's bound for its int8 activations (tests/test_model.py)."""
+    from ray_tpu_torch.ops.flash_attention import make_flash_attention
+    from ray_tpu_torch.train.step import global_norm, grad_step
+
+    n = cfg.n_layers
+    out = {}
+    for mode in modes:
+        fn = grad_step(dataclasses.replace(cfg, remat=mode),
+                       make_flash_attention())
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(2):  # the first call warms the allocator's cache
+            reset_counts()
+            t0 = time.perf_counter()
+            m, grads = fn(params, data)
+            sync()
+            dt = time.perf_counter() - t0
+            _, f1, f2 = counts()
+            check(f1 == F1_PER_LAYER[mode] * n and f2 == n,
+                  f"remat {mode}: {f1} forward and {f2} backward flash "
+                  f"launches for {n} layers, expected "
+                  f"{F1_PER_LAYER[mode] * n} and {n}")
+            loss, norm = float(m["loss"]), float(global_norm(grads))
+            del grads
+        peak = torch.cuda.max_memory_allocated()
+        out[mode] = dict(ms=dt * 1e3, peak_gib=peak / 2**30, f1=f1, f2=f2,
+                         loss=loss, grad_norm=norm)
+        base = out["flash_qkv"]
+        rel = abs(loss - base["loss"]) / base["loss"]
+        limit = 2e-2 if mode == "flash_qkv_ffn8" else 1e-3
+        print(f"  remat {mode}: forward + backward {dt * 1e3:.1f} ms, peak "
+              f"memory {peak / 2**30:.2f} GiB, flash launches {f1} + {f2}, "
+              f"loss {loss:.5f} ({rel:.2e} from flash_qkv, limit {limit}),"
+              f" grad_norm {norm:.4f}")
+        check(math.isfinite(loss) and rel <= limit,
+              f"remat {mode}: loss {loss} against flash_qkv's "
+              f"{base['loss']}")
+    return out
+
+
+def moe_flops_per_token(cfg, seq):
+    """Training FLOPs per token of the MoE model as the dense count does
+    it (6 x matmul parameters + the attention term), counting the router
+    and the top_k experts a token reaches (the active parameters)."""
+    d, f, v, L = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.n_layers
+    hq, hkv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    per_layer = 2 * d * hq + 2 * d * hkv + d * cfg.num_experts \
+        + cfg.top_k * 3 * d * f
+    return 6.0 * (L * per_layer + v * d) + 12 * L * d * seq
+
+
+def moe_oracle_check(cfg, params, device="cuda"):
+    """The reference's oracle on the card (tests/test_moe.py): with
+    capacity for every token, moe_ffn in fp32 equals the gate-weighted sum
+    of each chosen expert's dense SwiGLU FFN, here for layer 0 of the
+    moe_bench weights on 64 tokens, at the reference's 2e-3."""
+    from ray_tpu_torch.models.moe import moe_ffn
+
+    c = dataclasses.replace(cfg, dtype=torch.float32, capacity_factor=8.0)
+    layer = {k: v[0].detach().float() for k, v in params["blocks"].items()}
+    g = torch.Generator(device=device).manual_seed(4)
+    x = torch.randn((1, 64, c.d_model), generator=g, device=device)
+    with torch.no_grad():
+        out, _ = moe_ffn(x, layer, c)
+        tokens = x[0]
+        probs = torch.softmax(tokens @ layer["router"], -1)
+        gv, gi = probs.topk(c.top_k, -1)
+        gv = gv / gv.sum(-1, keepdim=True)
+        want = torch.zeros_like(tokens)
+        for t in range(tokens.shape[0]):
+            for j in range(c.top_k):
+                e, h = int(gi[t, j]), tokens[t]
+                act = torch.nn.functional.silu(h @ layer["w_gate"][e]) * (
+                    h @ layer["w_up"][e])
+                want[t] += gv[t, j] * (act @ layer["w_down"][e])
+    compare("moe_ffn fp32 vs the dense top-k ensemble (capacity ample)",
+            out[0], want, 2e-3, 2e-3)
+
+
+def phase5(seed, device="cuda", batch=16, seq=2048, warmup=2, steps=4):
+    """MoE training: moe_bench at full width and depth through F1 and F2 at
+    head_dim 64."""
+    from ray_tpu_torch.models.moe import MOE_PRESETS
+
+    print("phase 5: MoE training, moe_bench preset")
+    cfg = dataclasses.replace(MOE_PRESETS["moe_bench"], attn_impl="flash")
+    n = cfg.n_layers
+    r = train_run(cfg, seed, device, batch, seq, warmup, steps, 2 * n, n,
+                  f"MoE remat {cfg.remat}")
+    losses, aux = r["losses"], r["aux"]
+    check(losses[-1] < losses[0],
+          f"MoE loss did not fall: {losses[0]:.4f} -> {losses[-1]:.4f}")
+    check(len(aux) == len(losses) and min(aux) > 0,
+          f"MoE aux loss not positive: {aux}")
+    share = r["tps"] * moe_flops_per_token(cfg, seq) / BF16_FLOPS
+    print(f"  MoE train: {r['tps']:.1f} tokens/s ({r['step_s'] * 1e3:.1f} ms "
+          f"per step of {batch} x {seq} tokens), {share:.2%} of the dense "
+          f"bf16 peak at {moe_flops_per_token(cfg, seq) / 1e9:.3f} active "
+          f"GFLOP/token; peak memory {r['peak'] / 2**30:.2f} GiB; flash "
+          f"launches {r['launches'][0]} + {r['launches'][1]}")
+    state, prof = profile_train(r["step"], r["state"], r["data"],
+                                r["step_s"])
+    moe_oracle_check(cfg, state.params, device)
+    return {"cfg": cfg, "f1_launches": r["launches"][0],
+            "f2_launches": r["launches"][1], "tokens_per_s": r["tps"],
+            "step_ms": r["step_s"] * 1e3, "peak_gib": r["peak"] / 2**30,
+            "losses": losses, "aux": aux, "profile": prof,
+            "peak_share": share}
+
+
+def phase6(seed, device="cuda", n_layers=4, batch=2, seq=4096, warmup=2,
+           steps=5):
+    """The bench_8b.py recipe: 4 full llama3_8b layers (d 4096, 32/8 heads,
+    d_ff 14336), vocab 8192, flash attention, remat "full", batch 2 x
+    4096 tokens, AdamW with a bf16 first moment."""
+    from ray_tpu_torch.models.llama import PRESETS
+
+    print("phase 6: the bench_8b.py recipe, 4 llama3_8b layers")
+    cfg = dataclasses.replace(PRESETS["llama3_8b"], n_layers=n_layers,
+                              vocab_size=8192, attn_impl="flash",
+                              remat="full")
+    r = train_run(cfg, seed, device, batch, seq, warmup, steps,
+                  2 * n_layers, n_layers, "bench_8b")
+    per_layer = r["step_s"] * 1e3 / n_layers
+    print(f"  bench_8b: {r['tps']:.1f} tokens/s, {r['step_s'] * 1e3:.1f} ms "
+          f"per step, {per_layer:.1f} ms per layer, peak memory "
+          f"{r['peak'] / 2**30:.2f} GiB ({cfg.num_params() / 1e9:.3f} B "
+          f"parameters)")
+    return {"tokens_per_s": r["tps"], "per_layer_ms": per_layer,
+            "peak_gib": r["peak"] / 2**30, "losses": r["losses"]}
 
 
 # ------------------------------------------------------------ timing
@@ -1019,10 +1231,11 @@ def timing_serving(cfg, positions, errs):
     return rows
 
 
-def timing_training(cfg, errs, batch=16, seq=2048):
-    """F1 and F2 at the training step's shape (bench preset, B=16,
-    S=2048, causal, bf16). The library time of the backward is autograd
-    through scaled_dot_product_attention minus its forward."""
+def timing_training(cfg, errs, batch=16, seq=2048, tag=""):
+    """F1 and F2 at a training step's shape (B=16, S=2048, causal, bf16,
+    the heads of ``cfg``: the bench preset's at head_dim 128, moe_bench's
+    at 64 with ``tag`` "_d64"). The library time of the backward is
+    autograd through scaled_dot_product_attention minus its forward."""
     import torch.nn.functional as F
 
     from ray_tpu_torch.ops.flash_attention import (
@@ -1032,7 +1245,8 @@ def timing_training(cfg, errs, batch=16, seq=2048):
         flash_attention_reference,
     )
 
-    print(f"timing at the training step's shapes (B={batch}, S={seq})")
+    print(f"timing at the training step's shapes (B={batch}, S={seq}, "
+          f"heads {cfg.n_heads}/{cfg.n_kv_heads} of {cfg.head_dim})")
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v, do = flash_inputs(batch, seq, cfg.dtype, seed=9, h=h, hkv=hkv,
                                d=dh)
@@ -1054,9 +1268,9 @@ def timing_training(cfg, errs, batch=16, seq=2048):
         (2 * q.numel() + k.numel() + v.numel()) * elt + lse_bytes,
         4 * batch * h * dh * tri,
     )
-    rows["flash_fwd_train"] = dict(
+    rows["flash_fwd_train" + tag] = dict(
         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
-        library_ms=library_ms, max_abs_err=errs["flash_train"],
+        library_ms=library_ms, max_abs_err=errs["flash_train" + tag],
     )
 
     o, lse = flash_attention_forward(q, k, v, True)
@@ -1074,9 +1288,9 @@ def timing_training(cfg, errs, batch=16, seq=2048):
         + lse_bytes,
         10 * batch * h * dh * tri,
     )
-    rows["flash_bwd"] = dict(
+    rows["flash_bwd" + tag] = dict(
         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
-        library_ms=fwd_bwd_ms - fwd_ms, max_abs_err=errs["flash_bwd"],
+        library_ms=fwd_bwd_ms - fwd_ms, max_abs_err=errs["flash_bwd" + tag],
     )
     print_rows(rows)
     print(f"  library backward: scaled_dot_product_attention forward + "
@@ -1132,24 +1346,48 @@ def main() -> int:
     torch.cuda.empty_cache()
     p4 = phase4(args.seed)
     rows.update(timing_training(p4["cfg"], errs))
+    gc.collect()
+    torch.cuda.empty_cache()
+    p5 = phase5(args.seed)
+    rows.update(timing_training(p5["cfg"], errs, tag="_d64"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    p6 = phase6(args.seed)
     prof = p4["profile"]
     print(f"train: {p4['tokens_per_s']:.1f} tokens/s, "
           f"{p4['peak_share']:.2%} of dense bf16 peak, step "
-          f"{p4['step_ms']:.1f} ms (remat full {p4['full_step_ms']:.1f} ms),"
-          f" peak memory {p4['peak_gib']:.2f} GiB; device per step: flash "
+          f"{p4['step_ms']:.1f} ms, peak memory {p4['peak_gib']:.2f} GiB; device per step: flash "
           f"forward {prof['flash_fwd']:.1f} ms, flash backward "
           f"{prof['flash_bwd']:.1f} ms, matmuls {prof['matmul']:.1f} ms, "
           f"other {prof['other']:.1f} ms, idle {prof['idle_share']:.1%}; "
           f"CE alone {p4['ce_ms']:.1f} ms, optimizer alone "
           f"{p4['opt_ms']:.1f} ms; bf16 F2 dq run to run max |ddq| "
           f"{errs['dq_spread']:.3e} [{card}]")
+    print("remat modes, bench preset B=16 S=2048, one forward + backward: "
+          + "; ".join(f"{k} {v['ms']:.1f} ms {v['peak_gib']:.2f} GiB "
+                      f"F1 {v['f1']}" for k, v in p4["modes"].items())
+          + f" [{card}]")
+    mprof = p5["profile"]
+    print(f"MoE train (moe_bench, remat full): {p5['tokens_per_s']:.1f} "
+          f"tokens/s, step {p5['step_ms']:.1f} ms, peak memory "
+          f"{p5['peak_gib']:.2f} GiB, loss {p5['losses'][0]:.4f} -> "
+          f"{p5['losses'][-1]:.4f}, aux {p5['aux'][-1]:.5f}; device per "
+          f"step: flash forward {mprof['flash_fwd']:.1f} ms, flash backward "
+          f"{mprof['flash_bwd']:.1f} ms, matmuls {mprof['matmul']:.1f} ms, "
+          f"other {mprof['other']:.1f} ms, idle {mprof['idle_share']:.1%} "
+          f"[{card}]")
+    print(f"bench_8b recipe: {p6['tokens_per_s']:.1f} tokens/s, "
+          f"{p6['per_layer_ms']:.1f} ms per layer, peak memory "
+          f"{p6['peak_gib']:.2f} GiB [{card}]")
     print(f"run took {time.time() - t_start:.1f} s")
     # One row per kernel and main-path shape: the forward kernel runs in
     # the dense prefill (phase 3) and in training (phase 4).
     launches = {"paged_attention": p2["launches"],
                 "flash_fwd": p3["launches"],
                 "flash_fwd_train": p4["f1_launches"],
-                "flash_bwd": p4["f2_launches"]}
+                "flash_bwd": p4["f2_launches"],
+                "flash_fwd_train_d64": p5["f1_launches"],
+                "flash_bwd_d64": p5["f2_launches"]}
     fwd = ("ray_tpu_torch/csrc/flash_fwd.cu",
            "ray_tpu/ops/pallas/flash_attention.py:48")
     meta = {
@@ -1160,6 +1398,8 @@ def main() -> int:
         "flash_bwd": ("ray_tpu_torch/csrc/flash_bwd.cu",
                       "ray_tpu/ops/pallas/flash_attention.py:187"),
     }
+    meta["flash_fwd_train_d64"] = fwd
+    meta["flash_bwd_d64"] = meta["flash_bwd"]
     check(rows.keys() == meta.keys(),
           f"timed rows {sorted(rows)} are not the kernels {sorted(meta)}")
     kernels = [

@@ -27,7 +27,8 @@
 //
 // What bounds it on the H100: operations. The backward does five S x S x D
 // products per head, 10 * B * H * D * S(S+1)/2 flops causal, against
-// O(S * D * H) bytes. One rtt_flash_bwd call launches three kernels:
+// O(S * D * H) bytes. Every kernel is built for head_dim D = 64 and 128
+// from one template. One rtt_flash_bwd call launches three kernels:
 //
 // bf16, one fused pass on the tensor cores (FA2/FA3 design):
 //   flash_bwd_preprocess_kernel: delta, and zeroes an fp32 dq accumulator
@@ -40,10 +41,12 @@
 //     dp^T = v . dO^T (wgmma from shared memory), p^T and ds^T on the
 //     fragments, dv += p^T . dO and dk += ds^T . q (p^T and ds^T as bf16
 //     register operands, dO and q read MN-major), then ds^T to shared
-//     memory and dq = ds . k, each warpgroup one 64-column half of D,
-//     added into the accumulator with fp32 atomics: 16-byte vector
-//     reductions (red.global.add.v4.f32), a quarter of the scalar ones'
-//     count. Five products per pair, none recomputed. dk and dv stay in
+//     memory and dq = ds . k, added into the accumulator with fp32
+//     atomics: 16-byte vector reductions (red.global.add.v4.f32), a
+//     quarter of the scalar ones' count. At D = 128 each warpgroup takes
+//     one 64-column half of D over all 128 keys; at D = 64 (one half) each
+//     takes its own 64 keys, so both add into every dq element. Five
+//     products per pair, none recomputed. dk and dv (m64nDk16) stay in
 //     fp32 registers over the whole group and are rounded once.
 //   flash_bwd_convert_kernel: dq = (accumulator * scale) cast to bf16.
 //   The atomics add traffic the bound does not count: the accumulator is
@@ -419,26 +422,31 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&x)[4]) {
   x[0] = lo.x, x[1] = lo.y, x[2] = hi.x, x[3] = hi.y;
 }
 
-// delta[b * H + h, s] = sum_d dO * O in fp32, one warp per (b, s, h) row
-// of D = 128; zeroes that row of the dq accumulator when one is given.
-template <typename T>
+// delta[b * H + h, s] = sum_d dO * O in fp32, D / 4 lanes per (b, s, h)
+// row (a warp at D = 128, half a warp at D = 64), four elements a lane;
+// zeroes that row of the dq accumulator when one is given.
+template <typename T, int D>
 __global__ void __launch_bounds__(256) flash_bwd_preprocess_kernel(
-    const T* __restrict__ out,   // [B, S, H, 128]
-    const T* __restrict__ dout,  // [B, S, H, 128]
+    const T* __restrict__ out,   // [B, S, H, D]
+    const T* __restrict__ dout,  // [B, S, H, D]
     float* __restrict__ delta,   // [B * H, S]
-    float* __restrict__ dq_acc,  // [B, S, H, 128] or null
+    float* __restrict__ dq_acc,  // [B, S, H, D] or null
     int rows, int seq, int n_heads) {
-  const int row = blockIdx.x * 8 + (threadIdx.x >> 5);  // over B * S * H
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const size_t at = (size_t)row * 128 + lane * 4;
+  constexpr int kLanes = D / 4;  // lanes per row
+  const int row = blockIdx.x * (256 / kLanes) + threadIdx.x / kLanes;
+  const int lane = threadIdx.x % kLanes;
+  // Every lane of a warp takes part in the shuffles: a row past the end
+  // sums zeros and stores nothing.
+  const bool in = row < rows;
+  const size_t at = (size_t)(in ? row : 0) * D + lane * 4;
   float o[4], g[4];
   load4(out + at, o);
   load4(dout + at, g);
   float acc = 0.f;
 #pragma unroll
   for (int e = 0; e < 4; ++e) acc = fmaf(g[e], o[e], acc);
-  acc = group_sum<32>(acc);
+  acc = group_sum<kLanes>(acc);
+  if (!in) return;
   if (lane == 0) {
     const int h = row % n_heads, bs = row / n_heads;
     const int b = bs / seq, s = bs % seq;
@@ -460,12 +468,14 @@ __global__ void __launch_bounds__(256) flash_bwd_convert_kernel(
   o[1] = __floats2bfloat162_rn(a.z * scale, a.w * scale);
 }
 
-template <typename T>
+template <typename T, int D>
 cudaError_t launch_preprocess(const void* out, const void* dout, void* delta,
                               void* dq_acc, int batch, int seq, int n_heads,
                               cudaStream_t stream) {
   const int rows = batch * seq * n_heads;
-  flash_bwd_preprocess_kernel<T><<<(rows + 7) / 8, 256, 0, stream>>>(
+  constexpr int kRows = 256 / (D / 4);  // rows per block
+  flash_bwd_preprocess_kernel<T, D><<<(rows + kRows - 1) / kRows, 256, 0,
+                                      stream>>>(
       static_cast<const T*>(out), static_cast<const T*>(dout),
       static_cast<float*>(delta), static_cast<float*>(dq_acc), rows, seq,
       n_heads);
@@ -478,12 +488,14 @@ namespace wg {
 constexpr int kThreads = 256;  // two warpgroups
 constexpr int TK = 128;        // keys per block, 64 per warpgroup
 constexpr int TQ = 64;         // query rows per step
-constexpr int D = 128;
-constexpr int kKTile = tile::tile_bytes(TK);  // a [128, 128] bf16 tile
-constexpr int kQTile = tile::tile_bytes(TQ);  // a [64, 128] bf16 tile
-constexpr int kDsBytes = TK * TQ * 2;         // ds^T, [128 keys, 64 rows]
+template <int D>
+constexpr int kKTile = tile::tile_bytes(TK, D);  // a [128, D] bf16 tile
+template <int D>
+constexpr int kQTile = tile::tile_bytes(TQ, D);  // a [64, D] bf16 tile
+constexpr int kDsBytes = TK * TQ * 2;  // ds^T, [128 keys, 64 rows]
 // k, v; two stages of (q, dO); ds^T; two stages of (lse, delta); slack.
-constexpr int kSmem = 2 * kKTile + 4 * kQTile + kDsBytes +
+template <int D>
+constexpr int kSmem = 2 * kKTile<D> + 4 * kQTile<D> + kDsBytes +
                       2 * 2 * TQ * (int)sizeof(float) + tile::kAtomBytes;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -502,31 +514,34 @@ struct Args {
 
 // Loads step `it` of a block's walk (query head r, query tile qt) into
 // ring stage it % 2: q and dO tiles, lse and delta rows.
+template <int D>
 __device__ __forceinline__ void load_step(const Args& a, uint8_t* q_s,
                                           uint8_t* do_s, float* rows_s,
                                           int b, int h, int q0, int stage,
                                           int tid) {
   const size_t q_row = (size_t)a.n_heads * D;
   const size_t off = (size_t)b * a.seq * q_row + (size_t)h * D;
-  tile::load_tile<TQ, kThreads>(q_s + stage * kQTile, a.q + off, q_row, q0,
-                                a.seq, tid);
-  tile::load_tile<TQ, kThreads>(do_s + stage * kQTile, a.dout + off, q_row,
-                                q0, a.seq, tid);
+  tile::load_tile<TQ, D, kThreads>(q_s + stage * kQTile<D>, a.q + off,
+                                   q_row, q0, a.seq, tid);
+  tile::load_tile<TQ, D, kThreads>(do_s + stage * kQTile<D>, a.dout + off,
+                                   q_row, q0, a.seq, tid);
   const size_t bh = ((size_t)b * a.n_heads + h) * a.seq;
   float* rs = rows_s + stage * 2 * TQ;
   tile::load_row_f32(rs, a.lse + bh, q0, a.seq, TQ, tid);
   tile::load_row_f32(rs + TQ, a.delta + bh, q0, a.seq, TQ, tid - TQ);
 }
 
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_main_kernel(const Args a) {
   using namespace tile;
+  constexpr int kQT = kQTile<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* k_s = align_smem(smem_raw);
-  uint8_t* v_s = k_s + kKTile;
-  uint8_t* q_s = v_s + kKTile;       // stage i at q_s + i * kQTile
-  uint8_t* do_s = q_s + 2 * kQTile;  // stage i at do_s + i * kQTile
-  uint8_t* ds_s = do_s + 2 * kQTile;
+  uint8_t* v_s = k_s + kKTile<D>;
+  uint8_t* q_s = v_s + kKTile<D>;  // stage i at q_s + i * kQT
+  uint8_t* do_s = q_s + 2 * kQT;   // stage i at do_s + i * kQT
+  uint8_t* ds_s = do_s + 2 * kQT;
   float* rows_s = reinterpret_cast<float*>(ds_s + kDsBytes);  // lse, delta
 
   const int seq = a.seq, n_heads = a.n_heads, n_kv = a.n_kv;
@@ -543,34 +558,34 @@ __global__ void __launch_bounds__(kThreads, 1)
   const size_t q_row = (size_t)n_heads * D;
   const size_t kv_row = (size_t)n_kv * D;
   const size_t kv_off = (size_t)b * seq * kv_row + (size_t)hk * D;
-  tile::load_tile<TK, kThreads>(k_s, a.k + kv_off, kv_row, k0, seq, tid);
-  tile::load_tile<TK, kThreads>(v_s, a.v + kv_off, kv_row, k0, seq, tid);
+  tile::load_tile<TK, D, kThreads>(k_s, a.k + kv_off, kv_row, k0, seq, tid);
+  tile::load_tile<TK, D, kThreads>(v_s, a.v + kv_off, kv_row, k0, seq, tid);
 
   const int n_qt = (seq + TQ - 1) / TQ;
   // Causal: query tiles wholly before this key tile see none of it.
   const int qt0 = a.causal ? k0 / TQ : 0;
   const int per_head = n_qt - qt0;
   const int n_it = n_rep * per_head;
-  load_step(a, q_s, do_s, rows_s, b, hk * n_rep, qt0 * TQ, 0, tid);
+  load_step<D>(a, q_s, do_s, rows_s, b, hk * n_rep, qt0 * TQ, 0, tid);
   cp_async_commit();
 
-  float dk[64], dv[64];
+  float dk[D / 2], dv[D / 2];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
 
   for (int it = 0; it < n_it; ++it) {
     const int h = hk * n_rep + it / per_head;
     const int q0 = (qt0 + it % per_head) * TQ;
-    const uint8_t* qs = q_s + (it & 1) * kQTile;
-    const uint8_t* dos = do_s + (it & 1) * kQTile;
+    const uint8_t* qs = q_s + (it & 1) * kQT;
+    const uint8_t* dos = do_s + (it & 1) * kQT;
     const float* lse_s = rows_s + (it & 1) * 2 * TQ;
     const float* delta_s = lse_s + TQ;
     cp_async_wait<0>();
     fence_proxy_async();
     __syncthreads();  // step it has landed; step it - 1 is no longer read
     if (it + 1 < n_it) {  // the next step loads while this one is used
-      load_step(a, q_s, do_s, rows_s, b, hk * n_rep + (it + 1) / per_head,
-                (qt0 + (it + 1) % per_head) * TQ, (it + 1) & 1, tid);
+      load_step<D>(a, q_s, do_s, rows_s, b, hk * n_rep + (it + 1) / per_head,
+                   (qt0 + (it + 1) % per_head) * TQ, (it + 1) & 1, tid);
       cp_async_commit();
     }
 
@@ -638,25 +653,31 @@ __global__ void __launch_bounds__(kThreads, 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < TQ / 16; ++kk)
-      wgmma_m64n128k16_rs<1>(dv, pa[kk], desc_mn_major(dos, TQ, 0, kk), 1);
+      wgmma_rs<D, 1>(dv, pa[kk], desc_mn_major(dos, TQ, 0, kk), 1);
 #pragma unroll
     for (int kk = 0; kk < TQ / 16; ++kk)
-      wgmma_m64n128k16_rs<1>(dk, dsa[kk], desc_mn_major(qs, TQ, 0, kk), 1);
+      wgmma_rs<D, 1>(dk, dsa[kk], desc_mn_major(qs, TQ, 0, kk), 1);
     wgmma_commit();
     fence_proxy_async();
     __syncthreads();  // ds^T of both warpgroups is in shared memory
 
-    // dq[:, 64 wg ..] = ds . k[:, 64 wg ..] over the 128 keys: ds^T read
-    // MN-major as A (M = rows), k's column half MN-major as B.
+    // D = 128: dq[:, 64 wg ..] = ds . k[:, 64 wg ..] over the 128 keys.
+    // D = 64: dq = ds[:, keys of wg] . k[keys of wg, :], the partial sum
+    // over this warpgroup's 64 keys. ds^T read MN-major as A (M = rows),
+    // k's column half MN-major as B.
+    constexpr bool kSplitD = D == 128;
+    constexpr int kSteps = kSplitD ? TK / 16 : TK / 32;
+    const int col_half = kSplitD ? wg : 0;
+    const int kk0 = kSplitD ? 0 : kSteps * wg;
     float dq[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) dq[i] = 0.f;
     fence_regs(dq);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < TK / 16; ++kk)
-      wgmma_m64n64k16_ss<1, 1>(dq, desc_mn_major(ds_s, TK, 0, kk),
-                               desc_mn_major(k_s, TK, wg, kk), 1);
+    for (int i = 0; i < kSteps; ++i)
+      wgmma_m64n64k16_ss<1, 1>(dq, desc_mn_major(ds_s, TK, 0, kk0 + i),
+                               desc_mn_major(k_s, TK, col_half, kk0 + i), 1);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dq);
@@ -671,7 +692,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const bool odd = lane & 1;
     const int s = q0 + frag_row + (odd ? 8 : 0);
     float* dqr = a.dq_acc + ((size_t)b * seq + s) * q_row + (size_t)h * D +
-                 64 * wg + col - (odd ? 2 : 0);
+                 64 * col_half + col - (odd ? 2 : 0);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const float* lo = dq + 4 * j;  // row frag_row, then frag_row + 8
@@ -693,7 +714,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (s >= seq) continue;
     const size_t at = kv_off + (size_t)s * kv_row + col;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < D / 8; ++j) {
       *reinterpret_cast<__nv_bfloat162*>(a.dk + at + 8 * j) =
           __floats2bfloat162_rn(dk[4 * j + 2 * r], dk[4 * j + 2 * r + 1]);
       *reinterpret_cast<__nv_bfloat162*>(a.dv + at + 8 * j) =
@@ -702,14 +723,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+template <int D>
 cudaError_t launch(const Args& a, int batch, float scale, __nv_bfloat16* dq,
                    cudaStream_t stream) {
+  auto kernel = flash_bwd_main_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_main_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem<D>);
   if (err != cudaSuccess) return err;
   dim3 grid(batch * a.n_kv, (a.seq + TK - 1) / TK);
-  flash_bwd_main_kernel<<<grid, kThreads, kSmem, stream>>>(a);
+  kernel<<<grid, kThreads, kSmem<D>, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t n4 = (size_t)batch * a.seq * a.n_heads * D / 4;
@@ -720,8 +742,39 @@ cudaError_t launch(const Args& a, int batch, float scale, __nv_bfloat16* dq,
 
 }  // namespace wg
 
-// The one head size built, as for the forward kernel.
-constexpr int kHeadDim = 128;
+// Every kernel of one backward call at one head size (see the note above).
+template <int D>
+int run(int dtype, const void* q, const void* k, const void* v,
+        const void* dout, const void* out, const void* lse, void* delta,
+        void* dq_acc, void* dq, void* dk, void* dv, int batch, int seq,
+        int n_heads, int n_kv, int causal, float scale, cudaStream_t s) {
+  if (dtype == kFloat32) {
+    cudaError_t err = launch_preprocess<float, D>(
+        out, dout, delta, nullptr, batch, seq, n_heads, s);
+    if (err != cudaSuccess) return err;
+    return launch<float, D>(q, k, v, dout, lse, delta, dq, dk, dv, batch,
+                            seq, n_heads, n_kv, causal, scale, s);
+  }
+  if (dtype == kBFloat16) {
+    if (dq_acc == nullptr) return cudaErrorInvalidValue;
+    cudaError_t err = launch_preprocess<__nv_bfloat16, D>(
+        out, dout, delta, dq_acc, batch, seq, n_heads, s);
+    if (err != cudaSuccess) return err;
+    const wg::Args a{static_cast<const __nv_bfloat16*>(q),
+                     static_cast<const __nv_bfloat16*>(k),
+                     static_cast<const __nv_bfloat16*>(v),
+                     static_cast<const __nv_bfloat16*>(dout),
+                     static_cast<const float*>(lse),
+                     static_cast<const float*>(delta),
+                     static_cast<float*>(dq_acc),
+                     static_cast<__nv_bfloat16*>(dk),
+                     static_cast<__nv_bfloat16*>(dv),
+                     seq, n_heads, n_kv, causal};
+    return wg::launch<D>(a, batch, scale, static_cast<__nv_bfloat16*>(dq),
+                         s);
+  }
+  return cudaErrorInvalidValue;
+}
 
 }  // namespace
 }  // namespace rtt
@@ -730,8 +783,8 @@ constexpr int kHeadDim = 128;
 // the note above). `delta` ([B * H, S] fp32) and, for bf16, `dq_acc`
 // ([B, S, H, D] fp32) are scratch the wrapper allocates; fp32 passes no
 // dq_acc. The dtype picks the route: bf16 always takes the tensor-core
-// kernels, fp32 the scalar ones. Returns the first failing launch's
-// cudaError_t, or 0.
+// kernels, fp32 the scalar ones. The head sizes built are 64 and 128; any
+// other is refused. Returns the first failing launch's cudaError_t, or 0.
 extern "C" int rtt_flash_bwd(int dtype, const void* q, const void* k,
                              const void* v, const void* dout, const void* out,
                              const void* lse, void* delta, void* dq_acc,
@@ -739,33 +792,11 @@ extern "C" int rtt_flash_bwd(int dtype, const void* q, const void* k,
                              int n_heads, int n_kv, int head_dim, int causal,
                              float scale, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (head_dim != rtt::kHeadDim) return cudaErrorInvalidValue;
-  if (dtype == rtt::kFloat32) {
-    cudaError_t err = rtt::launch_preprocess<float>(
-        out, dout, delta, nullptr, batch, seq, n_heads, s);
-    if (err != cudaSuccess) return err;
-    return rtt::launch<float, rtt::kHeadDim>(q, k, v, dout, lse, delta, dq,
-                                             dk, dv, batch, seq, n_heads,
-                                             n_kv, causal, scale, s);
-  }
-  if (dtype == rtt::kBFloat16) {
-    if (dq_acc == nullptr) return cudaErrorInvalidValue;
-    cudaError_t err = rtt::launch_preprocess<__nv_bfloat16>(
-        out, dout, delta, dq_acc, batch, seq, n_heads, s);
-    if (err != cudaSuccess) return err;
-    const rtt::wg::Args a{
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v),
-        static_cast<const __nv_bfloat16*>(dout),
-        static_cast<const float*>(lse),
-        static_cast<const float*>(delta),
-        static_cast<float*>(dq_acc),
-        static_cast<__nv_bfloat16*>(dk),
-        static_cast<__nv_bfloat16*>(dv),
-        seq, n_heads, n_kv, causal};
-    return rtt::wg::launch(a, batch, scale, static_cast<__nv_bfloat16*>(dq),
-                           s);
-  }
+  if (head_dim == 128)
+    return rtt::run<128>(dtype, q, k, v, dout, out, lse, delta, dq_acc, dq,
+                         dk, dv, batch, seq, n_heads, n_kv, causal, scale, s);
+  if (head_dim == 64)
+    return rtt::run<64>(dtype, q, k, v, dout, out, lse, delta, dq_acc, dq,
+                        dk, dv, batch, seq, n_heads, n_kv, causal, scale, s);
   return cudaErrorInvalidValue;
 }

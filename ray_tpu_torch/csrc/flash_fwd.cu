@@ -16,21 +16,26 @@
 // causal (q . k^T and p . v) against O(S * D * H) bytes, hundreds of flops
 // per byte at S >= 512. Two instantiations:
 //
-// bf16 (flash_fwd_wgmma_kernel, both main paths): the tensor cores.
+// Both are built for head_dim D = 64 (the MoE and mini presets) and
+// D = 128 (llama3_8b, bench), from one template each.
+//
+// bf16 (flash_fwd_wgmma_kernel, every main path): the tensor cores.
 // - One block of two warpgroups per (b * h, 128-row query tile), the
 //   heaviest causal tiles launched first; each warpgroup owns 64 rows.
 // - K and V tiles of 128 keys stream through a two-stage cp.async ring
 //   (the next tile loads while this one is multiplied), only up to the
 //   diagonal when causal, into the 128-byte-swizzled layout of
 //   wgmma_tile.cuh.
-// - S = q . k^T is wgmma m64n128k16 from shared memory (both K-major);
+// - S = q . k^T is wgmma m64n128k16 from shared memory (both K-major),
+//   D / 16 steps;
 //   the online softmax runs on the accumulator fragment (a row lives in
 //   the 4 threads of a quad: two shuffles), with exp2 and log2(e) folded
 //   in, LSE still in natural log; only tiles the diagonal crosses and the
 //   ragged last tile are masked.
 // - p is rounded to bf16 in registers and is the A operand of the p . v
-//   wgmma (v read MN-major through the transpose bit): s and p never touch
-//   shared memory.
+//   wgmma, m64nDk16 (v read MN-major through the transpose bit): s and p
+//   never touch shared memory. At D = 64 the tiles are one swizzled
+//   column half and O takes half the registers.
 // Not yet done: warp specialisation (a producer warp issuing TMA), the
 // overlap of one tile's softmax with the next tile's q . k^T, and a
 // persistent grid (ROADMAP.md, Queue 2).
@@ -225,32 +230,37 @@ namespace wg {
 constexpr int kThreads = 256;  // two warpgroups
 constexpr int TQ = 128;        // query rows per block, 64 per warpgroup
 constexpr int TK = 128;        // keys per K/V tile
-constexpr int kTile = tile::tile_bytes(128);  // one [128, 128] bf16 tile
+// One [128, D] bf16 tile.
+template <int D>
+constexpr int kTile = tile::tile_bytes(128, D);
 // q, then two ring stages of (k, v); plus the alignment slack.
-constexpr int kSmem = 5 * kTile + tile::kAtomBytes;
+template <int D>
+constexpr int kSmem = 5 * kTile<D> + tile::kAtomBytes;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// s = q . k^T for this warpgroup's 64 rows and a 128-key tile: 8 steps
-// over D, q and k both K-major. Started, not waited for.
+// s = q . k^T for this warpgroup's 64 rows and a 128-key tile: D / 16
+// steps over D, q and k both K-major. Started, not waited for.
+template <int D>
 __device__ __forceinline__ void start_scores(float (&s)[64], const uint8_t* q_s,
                                              const uint8_t* ks, int wg) {
   using namespace tile;
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
+  for (int kk = 0; kk < D / 16; ++kk)
     wgmma_m64n128k16_ss<0, 0>(s, desc_k_major(q_s, TQ, 64 * wg, kk),
                               desc_k_major(ks, TK, 0, kk), 1);
   wgmma_commit();
 }
 
-// o += p . v over a 128-key tile: p as bf16 registers, v MN-major.
+// o += p . v over a 128-key tile: p as bf16 registers, v MN-major, N = D.
 // Started, not waited for.
-__device__ __forceinline__ void start_pv(float (&o)[64],
+template <int D>
+__device__ __forceinline__ void start_pv(float (&o)[D / 2],
                                          const uint32_t (&p)[8][4],
                                          const uint8_t* vs) {
   using namespace tile;
 #pragma unroll
   for (int kk = 0; kk < TK / 16; ++kk)
-    wgmma_m64n128k16_rs<1>(o, p[kk], desc_mn_major(vs, TK, 0, kk), 1);
+    wgmma_rs<D, 1>(o, p[kk], desc_mn_major(vs, TK, 0, kk), 1);
   wgmma_commit();
 }
 
@@ -295,9 +305,11 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2],
   }
 }
 
-__device__ __forceinline__ void rescale(float (&o)[64], const float (&alpha)[2]) {
+template <int D>
+__device__ __forceinline__ void rescale(float (&o)[D / 2],
+                                        const float (&alpha)[2]) {
 #pragma unroll
-  for (int j = 0; j < 16; ++j)
+  for (int j = 0; j < D / 8; ++j)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       o[4 * j + 2 * r] *= alpha[r];
@@ -305,19 +317,20 @@ __device__ __forceinline__ void rescale(float (&o)[64], const float (&alpha)[2])
     }
 }
 
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1) flash_fwd_wgmma_kernel(
-    const __nv_bfloat16* __restrict__ q,  // [B, S, H, 128], pre-scaled
-    const __nv_bfloat16* __restrict__ k,  // [B, S, Hkv, 128]
-    const __nv_bfloat16* __restrict__ v,  // [B, S, Hkv, 128]
-    __nv_bfloat16* __restrict__ out,      // [B, S, H, 128]
+    const __nv_bfloat16* __restrict__ q,  // [B, S, H, D], pre-scaled
+    const __nv_bfloat16* __restrict__ k,  // [B, S, Hkv, D]
+    const __nv_bfloat16* __restrict__ v,  // [B, S, Hkv, D]
+    __nv_bfloat16* __restrict__ out,      // [B, S, H, D]
     float* __restrict__ lse,              // [B * H, S]
     int seq, int n_heads, int n_kv, int causal) {
   using namespace tile;
-  constexpr int D = 128;
+  constexpr int kT = kTile<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* q_s = align_smem(smem_raw);
-  uint8_t* k_s = q_s + kTile;      // stage i at k_s + i * kTile
-  uint8_t* v_s = k_s + 2 * kTile;  // stage i at v_s + i * kTile
+  uint8_t* k_s = q_s + kT;      // stage i at k_s + i * kT
+  uint8_t* v_s = k_s + 2 * kT;  // stage i at v_s + i * kT
 
   const int bh = blockIdx.x;
   const int qt = gridDim.y - 1 - blockIdx.y;  // heaviest causal tiles first
@@ -340,28 +353,28 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_wgmma_kernel(
   int n_kt = (seq + TK - 1) / TK;
   if (causal) n_kt = min(n_kt, (q0 + TQ - 1) / TK + 1);
 
-  load_tile<TQ, kThreads>(q_s, qb, q_row, q0, seq, tid);
-  load_tile<TK, kThreads>(k_s, kb, kv_row, 0, seq, tid);
-  load_tile<TK, kThreads>(v_s, vb, kv_row, 0, seq, tid);
+  load_tile<TQ, D, kThreads>(q_s, qb, q_row, q0, seq, tid);
+  load_tile<TK, D, kThreads>(k_s, kb, kv_row, 0, seq, tid);
+  load_tile<TK, D, kThreads>(v_s, vb, kv_row, 0, seq, tid);
   cp_async_commit();
 
-  float o[64];
+  float o[D / 2];
   float m[2] = {kMInit, kMInit}, l[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
 
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * TK;
-    const uint8_t* ks = k_s + (kt & 1) * kTile;
-    const uint8_t* vs = v_s + (kt & 1) * kTile;
+    const uint8_t* ks = k_s + (kt & 1) * kT;
+    const uint8_t* vs = v_s + (kt & 1) * kT;
     cp_async_wait<0>();
     fence_proxy_async();
     __syncthreads();  // tile kt has landed; tile kt - 1 is no longer read
     if (kt + 1 < n_kt) {  // the next tile loads while this one is used
-      load_tile<TK, kThreads>(k_s + ((kt + 1) & 1) * kTile, kb, kv_row,
-                              k0 + TK, seq, tid);
-      load_tile<TK, kThreads>(v_s + ((kt + 1) & 1) * kTile, vb, kv_row,
-                              k0 + TK, seq, tid);
+      load_tile<TK, D, kThreads>(k_s + ((kt + 1) & 1) * kT, kb, kv_row,
+                                 k0 + TK, seq, tid);
+      load_tile<TK, D, kThreads>(v_s + ((kt + 1) & 1) * kT, vb, kv_row,
+                                 k0 + TK, seq, tid);
       cp_async_commit();
     }
 
@@ -370,18 +383,18 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_wgmma_kernel(
     for (int i = 0; i < 64; ++i) s[i] = 0.f;
     fence_regs(s);
     wgmma_fence();
-    start_scores(s, q_s, ks, wg);
+    start_scores<D>(s, q_s, ks, wg);
     wgmma_wait<0>();
     fence_regs(s);
     float alpha[2];
     softmax_tile(s, m, l, alpha, k0, qrow, col, seq,
                  causal && k0 + TK - 1 > q0 + 64 * wg);
-    rescale(o, alpha);
+    rescale<D>(o, alpha);
     uint32_t p[8][4];
     acc_to_a<128>(s, p);
     fence_regs(o);
     wgmma_fence();
-    start_pv(o, p, vs);
+    start_pv<D>(o, p, vs);
     wgmma_wait<0>();
     fence_regs(o);
     fence_words(p);
@@ -395,7 +408,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_wgmma_kernel(
     const float denom = l[r] == 0.f ? 1.f : l[r];
     __nv_bfloat16* orow = ob + (size_t)s_pos * q_row + col;
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
+    for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
           __floats2bfloat162_rn(o[4 * j + 2 * r] / denom,
                                 o[4 * j + 2 * r + 1] / denom);
@@ -405,15 +418,16 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_wgmma_kernel(
   }
 }
 
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    void* lse, int batch, int seq, int n_heads, int n_kv,
                    int causal, cudaStream_t stream) {
+  auto kernel = flash_fwd_wgmma_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem<D>);
   if (err != cudaSuccess) return err;
   dim3 grid(batch * n_heads, (seq + TQ - 1) / TQ);
-  flash_fwd_wgmma_kernel<<<grid, kThreads, kSmem, stream>>>(
+  kernel<<<grid, kThreads, kSmem<D>, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
@@ -424,26 +438,36 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace wg
 
-// The one head size built: that of the models the port serves on the card.
-constexpr int kHeadDim = 128;
+// One head size: the dtype picks the kernel, bf16 the tensor-core one,
+// fp32 the scalar one.
+template <int D>
+int run(int dtype, const void* q, const void* k, const void* v, void* out,
+        void* lse, int batch, int seq, int n_heads, int n_kv, int causal,
+        cudaStream_t s) {
+  if (dtype == kFloat32)
+    return launch<float, D>(q, k, v, out, lse, batch, seq, n_heads, n_kv,
+                            causal, s);
+  if (dtype == kBFloat16)
+    return wg::launch<D>(q, k, v, out, lse, batch, seq, n_heads, n_kv,
+                         causal, s);
+  return cudaErrorInvalidValue;
+}
 
 }  // namespace
 }  // namespace rtt
 
 // C entry point bound with ctypes. Returns the launch's cudaError_t. The
-// dtype picks the kernel: bf16 always takes the tensor-core kernel, fp32
-// the scalar one.
+// head sizes built are 64 and 128; any other is refused.
 extern "C" int rtt_flash_fwd(int dtype, const void* q, const void* k,
                              const void* v, void* out, void* lse, int batch,
                              int seq, int n_heads, int n_kv, int head_dim,
                              int causal, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (head_dim != rtt::kHeadDim) return cudaErrorInvalidValue;
-  if (dtype == rtt::kFloat32)
-    return rtt::launch<float, rtt::kHeadDim>(q, k, v, out, lse, batch, seq,
-                                             n_heads, n_kv, causal, s);
-  if (dtype == rtt::kBFloat16)
-    return rtt::wg::launch(q, k, v, out, lse, batch, seq, n_heads, n_kv,
-                           causal, s);
+  if (head_dim == 128)
+    return rtt::run<128>(dtype, q, k, v, out, lse, batch, seq, n_heads,
+                         n_kv, causal, s);
+  if (head_dim == 64)
+    return rtt::run<64>(dtype, q, k, v, out, lse, batch, seq, n_heads, n_kv,
+                        causal, s);
   return cudaErrorInvalidValue;
 }

@@ -4,19 +4,21 @@
 // that fill it, thin wrappers of wgmma.mma_async, and the conversion of an
 // fp32 accumulator into the bf16 register operand of the next product.
 //
-// Layout. A [R, 128] bf16 tile (R positions of one head, D = 128) is two
-// column halves of [R, 64], each R * 128 bytes. Within a half, row r is
-// 128 bytes whose 16-byte chunks are permuted, chunk c stored at c ^ (r % 8)
-// (the 128-byte swizzle). Tiles start at 1024-byte boundaries, so every
-// group of 8 rows is one swizzle atom and the descriptors' base offset is 0.
-// The same bytes serve as either operand form, chosen by the descriptor:
+// Layout. A [R, D] bf16 tile (R positions of one head, D = 64 or 128) is
+// D / 64 column halves of [R, 64], each R * 128 bytes: one half for D = 64,
+// two for D = 128. Within a half, row r is 128 bytes whose 16-byte chunks
+// are permuted, chunk c stored at c ^ (r % 8) (the 128-byte swizzle). Tiles
+// start at 1024-byte boundaries, so every group of 8 rows is one swizzle
+// atom and the descriptors' base offset is 0. The same bytes serve as
+// either operand form, chosen by the descriptor:
 //
 //   K-major  (rows are M or N, columns are K, as q and k in q . k^T):
 //            start = half base + 32 * (16-column step within the half),
 //            SBO = 1024 (the next 8 rows), LBO unused.
 //   MN-major (rows are K, columns are N, as v in p . v): start = base +
 //            2048 * (16-row step), SBO = 1024 (the next 8 rows along K),
-//            LBO = R * 128 (the next 64-column half along N).
+//            LBO = R * 128 (the next 64-column half along N; unread when
+//            N = 64, which one half holds whole).
 //
 // Fragments of one warpgroup (128 threads; warp w, lane l, g = l / 4,
 // t = l % 4):
@@ -39,15 +41,15 @@ namespace tile {
 constexpr int kRowBytes = 128;   // one swizzled row of a column half
 constexpr int kAtomBytes = 1024; // 8 rows: one swizzle atom
 
-// Bytes of a [rows, 128] bf16 tile.
-constexpr int tile_bytes(int rows) { return rows * 2 * kRowBytes; }
+// Bytes of a [rows, d] bf16 tile.
+constexpr int tile_bytes(int rows, int d) { return rows * d * 2; }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Byte offset of the 16-byte chunk c (0..15, 8 columns each) of row r in
-// a [rows, 128] tile.
+// Byte offset of the 16-byte chunk c (0 .. D / 8 - 1, 8 columns each) of
+// row r in a [rows, D] tile.
 __device__ __forceinline__ uint32_t chunk_offset(int rows, int r, int c) {
   return (c >> 3) * rows * kRowBytes + r * kRowBytes +
          (((c & 7) ^ (r & 7)) << 4);
@@ -62,8 +64,8 @@ __device__ __forceinline__ uint64_t make_desc(const void* p, uint32_t lbo,
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
 }
 
-// K-major operand: rows [row0, row0 + 64 or N) of a [rows, 128] tile,
-// columns 16 k .. 16 k + 15 (k < 8).
+// K-major operand: rows [row0, row0 + 64 or N) of a [rows, D] tile,
+// columns 16 k .. 16 k + 15 (k < D / 16).
 __device__ __forceinline__ uint64_t desc_k_major(const uint8_t* tile,
                                                  int rows, int row0, int k) {
   return make_desc(tile + (k >> 2) * rows * kRowBytes + row0 * kRowBytes +
@@ -71,7 +73,7 @@ __device__ __forceinline__ uint64_t desc_k_major(const uint8_t* tile,
                    16, kAtomBytes);
 }
 
-// MN-major operand: rows 16 k .. 16 k + 15 of a [rows, 128] tile (K), all
+// MN-major operand: rows 16 k .. 16 k + 15 of a [rows, D] tile (K), all
 // its columns from `half` on (N = 64 from one half, 128 from both).
 __device__ __forceinline__ uint64_t desc_mn_major(const uint8_t* tile,
                                                   int rows, int half, int k) {
@@ -108,20 +110,21 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// Rows s0 .. s0 + R - 1 of one head into a [R, 128] tile; `src` points at
+// Rows s0 .. s0 + R - 1 of one head into a [R, D] tile; `src` points at
 // the head's first element of position 0 and `row` is the stride between
-// positions (elements). Rows at or past `seq` are zero-filled. Sixteen
-// consecutive threads copy one 256-byte row.
-template <int R, int kThreads>
+// positions (elements). Rows at or past `seq` are zero-filled. D / 8
+// consecutive threads copy one row of 2 D bytes.
+template <int R, int D, int kThreads>
 __device__ __forceinline__ void load_tile(uint8_t* dst,
                                           const __nv_bfloat16* src,
                                           size_t row, int s0, int seq,
                                           int tid) {
-  static_assert(R * 16 % kThreads == 0, "whole rows per pass");
+  constexpr int kChunks = D / 8;  // 16-byte chunks per row
+  static_assert(R * kChunks % kThreads == 0, "whole rows per pass");
 #pragma unroll
-  for (int j = 0; j < R * 16 / kThreads; ++j) {
+  for (int j = 0; j < R * kChunks / kThreads; ++j) {
     const int i = tid + j * kThreads;
-    const int r = i >> 4, c = i & 15;
+    const int r = i / kChunks, c = i % kChunks;
     const int s = s0 + r;
     const bool in = s < seq;
     cp_async16(dst + chunk_offset(R, r, c),
@@ -259,6 +262,44 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
         "r"(scale_d), "n"(kTransB));
+}
+
+// D[64, 64] (+)= A[64, 16] . B[16, 64], A from registers, B in shared
+// memory.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t desc_b,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d), "n"(kTransB));
+}
+
+// D[64, N] (+)= A[64, 16] . B[16, N] for N = 64 or 128, A from registers:
+// the m64nNk16 wrapper of that width.
+template <int N, int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b, int scale_d) {
+  static_assert(N == 64 || N == 128, "N is 64 or 128");
+  if constexpr (N == 128)
+    wgmma_m64n128k16_rs<kTransB>(d, a, desc_b, scale_d);
+  else
+    wgmma_m64n64k16_rs<kTransB>(d, a, desc_b, scale_d);
 }
 
 // *p += (a, b, c, d) in device memory, one 16-byte reduction (sm_90),

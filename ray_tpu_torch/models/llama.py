@@ -7,43 +7,60 @@ weights oriented [in, out], norm scales fp32. Matrices are cast to
 over the layer stack replaces ``lax.scan``.
 
 :func:`forward` is inference (no autograd). :func:`forward_with_aux` is the
-differentiable training forward, with the reference's remat modes
-``"none"``, ``"full"`` and ``"flash_qkv"`` as non-reentrant
-``torch.utils.checkpoint`` regions:
+differentiable training forward, with the reference's eight remat modes.
+Each layer is one non-reentrant ``torch.utils.checkpoint`` region
+("none": no region); a selective-checkpoint policy keeps the outputs of
+the ops named below, as the reference's ``save_only_these_names`` keeps
+tagged values, and the backward replays the rest of the layer:
 
-- ``"full"``: one region around the whole block; backward replays all of
-  it, the attention forward included.
-- ``"flash_qkv"``: two regions, norm/q-k-v projections/RoPE, then
-  wo/residual/FFN, with the attention call between them. The flash
-  Function (ops/flash_attention.py) saves its own q, k, v, O and LSE, so
-  across the block only the layer input x and those residuals stay alive,
-  and the backward never replays the forward kernel: one forward and one
-  backward launch per layer per step. The kernel is a ctypes launch inside
-  an autograd Function, which no selective checkpoint policy can name;
-  placing it between two regions is what keeps it out of every replay.
-  (A ``torch.library.custom_op`` would let a policy name it, at the cost
-  of a registered op per kernel.) The split is taken for an attention
-  function whose ``keeps_residuals`` attribute is true (set on
-  ``flash_attention``). With any other attention function
-  (``attn_impl="dense"``) the mode keeps nothing by name and acts as
-  ``"full"``, as in the reference.
+==================  ===========================================  ===========
+mode                kept across the boundary                     F1 / layer
+==================  ===========================================  ===========
+``none``            everything autograd saves                    1
+``full``            nothing (the layer input)                    2
+``attn``            the attention output (``"attn_out"``)        2
+``flash``           the flash op's O and LSE (``"flash_out"``)   1
+``dots``            every 2-D product (``aten.mm``)              2
+``flash_qkv``       ``flash`` + the q/k/v products               1
+``flash_qkv_ffn``   ``flash_qkv`` + FFN gate-pre and up products 1
+``flash_qkv_ffn8``  ``flash_qkv`` + those two as int8 + scale    1
+==================  ===========================================  ===========
 
-The reference's other modes (``attn``, ``flash``, ``dots``,
-``flash_qkv_ffn``, ``flash_qkv_ffn8``) raise NotImplementedError until
-they are ported (ROADMAP.md, Queue 1).
+(F1: launches of the flash forward kernel per layer in a forward and
+backward.) An op is named in one of three ways: the flash forward is the
+registered op ``ray_tpu_torch::flash_fwd`` (ops/flash_attention.py); a
+product is computed inside :func:`saved_as`; a value passes through
+:func:`checkpoint_name` (a copy) or :func:`_int8_ckpt`. Where the
+reference tags a product's output, the port keeps the product itself, so
+the replay skips the matmul as XLA's does: "flash_qkv" keeps the q/k/v
+projections before RoPE (the same bytes as the reference's post-RoPE q,
+k, v; RoPE is replayed), and ``_int8_ckpt`` computes its product inside
+the op that is kept, so the replay never recomputes the bf16 product it
+quantizes. The q/k/v products are named only for an attention function
+that keeps its own residuals (``flash_attention``): under dense attention
+"flash" and "flash_qkv" keep nothing, and act as "full", as in the
+reference.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
+import threading
 from typing import Any, Callable
 
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ray_tpu_torch import resolve_device
+import ray_tpu_torch.ops.flash_attention  # noqa: F401 (registers flash_fwd)
 from ray_tpu_torch.ops.attention import causal_attention
 from ray_tpu_torch.ops.norms import rms_norm
 from ray_tpu_torch.ops.rope import apply_rope, rope_frequencies
@@ -56,10 +73,18 @@ FfnFn = Callable[..., tuple[torch.Tensor, torch.Tensor]]
 # rms_norm upcasts the scale itself and a bf16 copy would change it.
 NORM_LEAVES = ("attn_norm", "mlp_norm")
 
-REMAT_MODES = ("none", "full", "flash_qkv")
-# Named by the reference, not ported yet (ROADMAP.md, Queue 1).
-UNPORTED_REMAT_MODES = ("attn", "flash", "dots", "flash_qkv_ffn",
-                        "flash_qkv_ffn8")
+REMAT_MODES = ("none", "full", "attn", "flash", "dots", "flash_qkv",
+               "flash_qkv_ffn", "flash_qkv_ffn8")
+# The names each selective mode keeps (module docstring); "flash_out"
+# stands for the reference's "flash_out" and "flash_lse", "ffn_gate" and
+# "ffn_up" for their "_scale" siblings too under flash_qkv_ffn8.
+KEPT_NAMES = {
+    "attn": ("attn_out",),
+    "flash": ("flash_out",),
+    "flash_qkv": ("flash_out", "flash_qkv"),
+    "flash_qkv_ffn": ("flash_out", "flash_qkv", "ffn_gate", "ffn_up"),
+    "flash_qkv_ffn8": ("flash_out", "flash_qkv", "ffn_gate", "ffn_up"),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,6 +167,39 @@ def _shapes(cfg: LlamaConfig) -> dict[str, tuple[tuple[int, ...], int]]:
     }
 
 
+def truncated_normal(shape, fan_in: int, gen: torch.Generator,
+                     device: torch.device, dtype: torch.dtype):
+    """A ``shape`` tensor in ``dtype``: truncated normal in [-2, 2] times
+    fan_in**-0.5, drawn in fp32 from ``gen`` one trailing matrix at a time
+    (the fp32 scratch is one matrix, not the whole stack)."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for sl in out.view(-1, *shape[-2:]):
+        tmp = torch.empty(shape[-2:], dtype=torch.float32, device=device)
+        torch.nn.init.trunc_normal_(tmp, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        sl.copy_(tmp.mul_(fan_in**-0.5))
+    return out
+
+
+def _init_params(cfg: LlamaConfig, gen: torch.Generator,
+                 dev: torch.device, dtype: torch.dtype) -> Params:
+    shapes = _shapes(cfg)
+
+    def w(name):
+        return truncated_normal(*shapes[name], gen, dev, dtype)
+
+    blocks = {name: w(name) for name in ("wq", "wk", "wv", "wo", "w_gate",
+                                         "w_up", "w_down")}
+    L, d = cfg.n_layers, cfg.d_model
+    for name in NORM_LEAVES:
+        blocks[name] = torch.zeros((L, d), dtype=torch.float32, device=dev)
+    return {
+        "tok_emb": w("tok_emb"),
+        "blocks": blocks,
+        "final_norm": torch.zeros((d,), dtype=torch.float32, device=dev),
+        "lm_head": w("lm_head"),
+    }
+
+
 def init_params(
     cfg: LlamaConfig,
     seed: int = 0,
@@ -153,34 +211,10 @@ def init_params(
     drawn in fp32 from a ``torch.Generator`` on ``device`` seeded with
     ``seed``, stored in ``dtype`` (fp32 like the reference by default;
     pass ``cfg.dtype`` to hold a full-size model at half the bytes). Norm
-    scales are fp32 zeros. Draws go one layer at a time, so the fp32
-    scratch is one layer's matrix, not the stack's."""
+    scales are fp32 zeros."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-
-    def w(shape, fan_in):
-        out = torch.empty(shape, dtype=dtype, device=dev)
-        for sl in out.view(-1, *shape[-2:]):
-            tmp = torch.empty(shape[-2:], dtype=torch.float32, device=dev)
-            torch.nn.init.trunc_normal_(tmp, 0.0, 1.0, -2.0, 2.0,
-                                        generator=gen)
-            sl.copy_(tmp.mul_(fan_in**-0.5))
-        return out
-
-    shapes = _shapes(cfg)
-    blocks = {
-        name: w(*shapes[name])
-        for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
-    }
-    L, d = cfg.n_layers, cfg.d_model
-    for name in NORM_LEAVES:
-        blocks[name] = torch.zeros((L, d), dtype=torch.float32, device=dev)
-    return {
-        "tok_emb": w(*shapes["tok_emb"]),
-        "blocks": blocks,
-        "final_norm": torch.zeros((d,), dtype=torch.float32, device=dev),
-        "lm_head": w(*shapes["lm_head"]),
-    }
+    return _init_params(cfg, gen, dev, dtype)
 
 
 def params_from_jax(
@@ -188,9 +222,10 @@ def params_from_jax(
 ) -> Params:
     """Carry a reference parameter tree (numpy arrays, e.g.
     ``jax.tree.map(np.asarray, params)``) into torch tensors on
-    ``device``. Matrices are stored cast to ``cfg.dtype`` (the reference
-    casts them at every use, so the values are the same); norm scales
-    stay fp32."""
+    ``device``, a dense or an MoE tree (models/moe.py). Matrices, the
+    router and the experts included, are stored cast to ``cfg.dtype`` (the
+    reference casts them at every use, so the values are the same); norm
+    scales stay fp32."""
     dev = resolve_device(device)
 
     def conv(x, keep_fp32):
@@ -229,15 +264,132 @@ def embed(params: Params, tokens: torch.Tensor, cfg: LlamaConfig):
     return F.one_hot(tokens.long(), table.shape[0]).to(table.dtype) @ table
 
 
-def project_qkv(x: torch.Tensor, p: Params, cfg: LlamaConfig):
+# ------------------------------------------------------------ remat names
+_naming = threading.local()
+
+
+@contextlib.contextmanager
+def saved_as(name: str | None):
+    """Products (``aten.mm``) computed inside carry ``name`` for the remat
+    policy (None: no name). The same code runs in the backward's replay,
+    so the policy sees the same names there."""
+    prev = getattr(_naming, "name", None)
+    _naming.name = name
+    try:
+        yield
+    finally:
+        _naming.name = prev
+
+
+@torch.library.custom_op("ray_tpu_torch::checkpoint_name", mutates_args=())
+def _checkpoint_name_op(x: torch.Tensor, name: str) -> torch.Tensor:
+    return x.clone()  # a registered op's output may not alias its input
+
+
+_checkpoint_name_op.register_autograd(lambda ctx, g: (g, None))
+
+
+def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    """``x`` under ``name`` for the remat policy (the reference's
+    ``checkpoint_name``); a copy of x."""
+    return torch.ops.ray_tpu_torch.checkpoint_name(x, name)
+
+
+def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(q int8, scale fp32 [..., 1]) of the reference's ``_int8_ckpt``:
+    scale = max|x| / 127 + 1e-12 per row in fp32, q = round(x / scale)
+    (half to even, as ``jnp.round``) clipped to [-127, 127]."""
+    scale = x.abs().amax(-1, keepdim=True).float() / 127.0 + 1e-12
+    q = torch.clamp(torch.round(x.float() / scale), -127, 127)
+    return q.to(torch.int8), scale
+
+
+@torch.library.custom_op("ray_tpu_torch::int8_ckpt", mutates_args=())
+def _int8_ckpt_op(x: torch.Tensor, w: torch.Tensor | None,
+                  name: str) -> tuple[torch.Tensor, torch.Tensor]:
+    return quantize_int8(x if w is None else x @ w)
+
+
+class _Int8Ckpt(torch.autograd.Function):
+    """Forward: the int8 op, then its dequantized value; backward: the
+    cotangent straight through the quantization (and, with ``w``, the
+    product's gradients)."""
+
+    @staticmethod
+    def forward(ctx, x, w, name):
+        q, scale = torch.ops.ray_tpu_torch.int8_ckpt(x, w, name)
+        ctx.product = w is not None
+        if ctx.product:
+            ctx.save_for_backward(x, w)
+        return (q.float() * scale).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.product:
+            return g, None, None
+        x, w = ctx.saved_tensors
+        dx = g @ w.mT if ctx.needs_input_grad[0] else None
+        dw = (x.reshape(-1, x.shape[-1]).mT @ g.reshape(-1, g.shape[-1])
+              if ctx.needs_input_grad[1] else None)
+        return dx, dw, None
+
+
+def _int8_ckpt(x: torch.Tensor, name: str,
+               w: torch.Tensor | None = None) -> torch.Tensor:
+    """The reference's ``_int8_ckpt``: ``x`` (or the product ``x @ w``)
+    through int8 + a per-row fp32 scale, dequantized to its dtype; the
+    gradient passes straight through. What a policy keeps under ``name``
+    is the int8 tensor and its scale. With ``w`` the product is computed
+    inside the kept op, so a backward replay never recomputes it."""
+    return _Int8Ckpt.apply(x, w, name)
+
+
+def _policy(names: tuple[str, ...], dots: bool):
+    """Selective-checkpoint policy: keep the ops named in ``names``; with
+    ``dots`` every 2-D product (the reference's
+    ``dots_with_no_batch_dims_saveable``; attention's batched products and
+    the flash op are not 2-D products)."""
+    mm = torch.ops.aten.mm.default
+    flash = torch.ops.ray_tpu_torch.flash_fwd.default
+    named = (torch.ops.ray_tpu_torch.checkpoint_name.default,
+             torch.ops.ray_tpu_torch.int8_ckpt.default)
+
+    def policy(ctx, op, *args, **kwargs):
+        if op is mm:
+            keep = dots or getattr(_naming, "name", None) in names
+        elif op is flash:
+            keep = "flash_out" in names
+        elif op in named:
+            keep = args[-1] in names
+        else:
+            keep = False
+        return (CheckpointPolicy.MUST_SAVE if keep
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return policy
+
+
+def _remat_contexts(remat: str):
+    """``context_fn`` of the layer's checkpoint region under ``remat``
+    (None: plain recompute, "full")."""
+    if remat == "full":
+        return None
+    policy = _policy(KEPT_NAMES.get(remat, ()), remat == "dots")
+    return functools.partial(create_selective_checkpoint_contexts, policy)
+
+
+def project_qkv(x: torch.Tensor, p: Params, cfg: LlamaConfig,
+                name: str | None = None):
     """Pre-attention norm and q/k/v projections: q [B, S, H, Dh], k and v
-    [B, S, Hkv, Dh], before RoPE."""
+    [B, S, Hkv, Dh], before RoPE; the products under ``name``."""
     b, s, _ = x.shape
     dt = cfg.dtype
     h = rms_norm(x, p["attn_norm"])
-    q = (h @ p["wq"].to(dt)).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = (h @ p["wk"].to(dt)).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = (h @ p["wv"].to(dt)).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    wq, wk, wv = (p[n].to(dt) for n in ("wq", "wk", "wv"))
+    with saved_as(name):
+        q = (h @ wq).reshape(b, s, cfg.n_heads, cfg.head_dim)
+        k = (h @ wk).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+        v = (h @ wv).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
     return q, k, v
 
 
@@ -249,37 +401,43 @@ def lm_logits(params: Params, x: torch.Tensor, cfg: LlamaConfig):
 
 
 def _dense_ffn(h: torch.Tensor, p: Params, cfg: LlamaConfig):
-    """SwiGLU FFN; returns (out, aux loss 0) as MoE FFNs return (out, aux)."""
+    """SwiGLU FFN; returns (out, aux loss 0) as MoE FFNs return (out, aux).
+    Its gate-pre and up products are named "ffn_gate" and "ffn_up" (kept
+    in ``cfg.dtype`` under "flash_qkv_ffn": the reference's
+    ``_dense_ffn_save``)."""
     dt = cfg.dtype
-    gate = F.silu(h @ p["w_gate"].to(dt))
-    up = h @ p["w_up"].to(dt)
+    w_gate, w_up = p["w_gate"].to(dt), p["w_up"].to(dt)
+    with saved_as("ffn_gate"):
+        gate_pre = h @ w_gate
+    with saved_as("ffn_up"):
+        up = h @ w_up
     aux = h.new_zeros((), dtype=torch.float32)
-    return (gate * up) @ p["w_down"].to(dt), aux
+    return (F.silu(gate_pre) * up) @ p["w_down"].to(dt), aux
 
 
-def _attn_inputs(x, p, cos, sin, cfg: LlamaConfig):
-    """q, k, v of the attention sublayer, RoPE applied to q and k."""
-    q, k, v = project_qkv(x, p, cfg)
-    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
-
-
-def _attn_out_and_ffn(x, attn, p, cfg: LlamaConfig, ffn_fn: FfnFn):
-    """Output projection and residual, then the pre-norm FFN sublayer."""
-    b, s, _ = x.shape
-    x = x + attn.reshape(b, s, -1) @ p["wo"].to(cfg.dtype)
-    ffn_out, aux = ffn_fn(rms_norm(x, p["mlp_norm"]), p, cfg)
-    return x + ffn_out, aux
+def _dense_ffn_q8(h: torch.Tensor, p: Params, cfg: LlamaConfig):
+    """FFN whose gate-pre and up activations cross the remat boundary as
+    int8 + a per-row fp32 scale (:func:`_int8_ckpt` of each product): the
+    replay recomputes neither product and keeps no bf16 copy."""
+    dt = cfg.dtype
+    gate_pre = _int8_ckpt(h, "ffn_gate", p["w_gate"].to(dt))
+    up = _int8_ckpt(h, "ffn_up", p["w_up"].to(dt))
+    aux = h.new_zeros((), dtype=torch.float32)
+    return (F.silu(gate_pre) * up) @ p["w_down"].to(dt), aux
 
 
 def _block(x, p, cos, sin, cfg: LlamaConfig, attn_fn: AttnFn, ffn_fn: FfnFn):
-    """Pre-norm attention + FFN sublayers; ffn_fn returns (out, aux)."""
-    q, k, v = _attn_inputs(x, p, cos, sin, cfg)
-    return _attn_out_and_ffn(x, attn_fn(q, k, v), p, cfg, ffn_fn)
-
-
-def _remat(fn, *args):
-    return checkpoint(fn, *args, use_reentrant=False,
-                      preserve_rng_state=False)
+    """Pre-norm attention + FFN sublayers; ffn_fn returns (out, aux) so MoE
+    layers (models/moe.py) reuse this block unchanged."""
+    b, s, _ = x.shape
+    qkv = "flash_qkv" if getattr(attn_fn, "keeps_residuals", False) else None
+    q, k, v = project_qkv(x, p, cfg, name=qkv)
+    attn = attn_fn(apply_rope(q, cos, sin), apply_rope(k, cos, sin), v)
+    if cfg.remat == "attn":  # the copy is made only where it is kept
+        attn = checkpoint_name(attn, "attn_out")
+    x = x + attn.reshape(b, s, -1) @ p["wo"].to(cfg.dtype)
+    ffn_out, aux = ffn_fn(rms_norm(x, p["mlp_norm"]), p, cfg)
+    return x + ffn_out, aux
 
 
 def forward_with_aux(
@@ -297,19 +455,16 @@ def forward_with_aux(
     back instead of logits (the chunked-CE loss projects them a slice at a
     time). ``cfg.remat`` selects what the layer loop keeps for backward
     (module docstring); ``attn_fn`` defaults to the plain causal attention.
+    Under "flash_qkv_ffn8" the dense FFN becomes :func:`_dense_ffn_q8`;
+    another ``ffn_fn`` (the MoE FFN) stays as it is, as in the reference.
     """
-    if cfg.remat in UNPORTED_REMAT_MODES:
-        raise NotImplementedError(
-            f"remat={cfg.remat!r} is not ported yet; the port has "
-            f"{REMAT_MODES} (ROADMAP.md, Queue 1)"
-        )
     if cfg.remat not in REMAT_MODES:
         raise ValueError(f"unknown remat {cfg.remat!r}")
     attn_fn = attn_fn or causal_attention
     ffn_fn = ffn_fn or _dense_ffn
-    split = cfg.remat == "flash_qkv" and getattr(
-        attn_fn, "keeps_residuals", False
-    )
+    if ffn_fn is _dense_ffn and cfg.remat == "flash_qkv_ffn8":
+        ffn_fn = _dense_ffn_q8
+    contexts = _remat_contexts(cfg.remat)
     seq = tokens.shape[1]
     cos, sin = rope_frequencies(
         cfg.head_dim, seq, cfg.rope_theta, device=tokens.device
@@ -323,12 +478,11 @@ def forward_with_aux(
         p = {k: v[i] for k, v in layers.items()}
         if cfg.remat == "none":
             x, aux = _block(x, p, cos, sin, cfg, attn_fn, ffn_fn)
-        elif split:
-            q, k, v = _remat(_attn_inputs, x, p, cos, sin, cfg)
-            x, aux = _remat(_attn_out_and_ffn, x, attn_fn(q, k, v), p, cfg,
-                            ffn_fn)
         else:
-            x, aux = _remat(_block, x, p, cos, sin, cfg, attn_fn, ffn_fn)
+            kw = {} if contexts is None else {"context_fn": contexts}
+            x, aux = checkpoint(_block, x, p, cos, sin, cfg, attn_fn, ffn_fn,
+                                use_reentrant=False,
+                                preserve_rng_state=False, **kw)
         aux_total = aux_total + aux
     if return_hidden:
         return rms_norm(x, params["final_norm"]), aux_total

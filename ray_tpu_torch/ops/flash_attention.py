@@ -10,15 +10,19 @@ and the fp32 logsumexp [B * H, 1, S]; the backward (``csrc/flash_bwd.cu``)
 recomputes the probabilities from that logsumexp and returns dq, dk, dv
 with dk and dv summed over each KV group.
 
-Both kernels pick their route by dtype: bf16 runs on the tensor cores
+Both kernels are built for head_dim 64 and 128 and pick their route by
+dtype: bf16 runs on the tensor cores
 (``wgmma``, tiles laid out by ``csrc/wgmma_tile.cuh``; the backward is
 one fused pass whose dq is summed with fp32 atomics, so bf16 dq is not
 bit-reproducible run to run), fp32 on scalar FMAs.
 
-:func:`flash_attention` is differentiable: it saves (q, k, v, O, LSE) as
-``_flash_fwd`` does, and its backward launches the backward kernel once,
-never the forward again, so a remat mode that keeps them across its
-boundary never replays the forward kernel (models/llama.py, "flash_qkv").
+:func:`flash_attention` is differentiable: the forward is the registered
+op ``torch.ops.ray_tpu_torch.flash_fwd`` (O and LSE), whose autograd
+formula saves (q, k, v, O, LSE) as ``_flash_fwd`` does and launches the
+backward kernel once. Being one op, it is what a selective-checkpoint
+policy can keep by name: the remat modes that keep the flash outputs
+("flash", "flash_qkv", ...) never replay the forward kernel in backward
+(models/llama.py).
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ import torch
 from ray_tpu_torch import _build, mesh_size
 
 _MASK = -1e9
-KERNEL_HEAD_DIM = 128  # the one head size csrc/flash_{fwd,bwd}.cu build
+KERNEL_HEAD_DIMS = (64, 128)  # the head sizes csrc/flash_{fwd,bwd}.cu build
 
 # Tile arithmetic of the reference kernel, kept as the prefill gate's
 # (llm/kv_cache.py): the gate admits a sequence whose fitted block is
@@ -153,9 +157,9 @@ def _cuda_checks(name, q, k, v, *more):
             f"{name}: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
             f"v {tuple(v.shape)} do not match"
         )
-    if d != KERNEL_HEAD_DIM:
-        raise ValueError(f"{name}: the kernel is built for head_dim "
-                         f"{KERNEL_HEAD_DIM}, got {d}")
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{name}: the kernel is built for head_dim in "
+                         f"{KERNEL_HEAD_DIMS}, got {d}")
 
 
 @functools.cache
@@ -279,24 +283,39 @@ def flash_attention_backward(
 flash_attention_backward.launches = 0
 
 
-class _FlashAttention(torch.autograd.Function):
-    """Forward kernel in forward, backward kernel in backward. Saves
-    (q, k, v, O, LSE), the residuals of the reference's ``_flash_fwd``."""
+@torch.library.custom_op("ray_tpu_torch::flash_fwd", mutates_args=())
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool, scale: float | None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(O, LSE) of :func:`flash_attention_forward`, as one registered op."""
+    return flash_attention_forward(q, k, v, causal, scale)
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
-        out, lse = flash_attention_forward(q, k, v, causal, scale)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.scale = causal, scale
-        return out
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_backward(
-            q, k, v, out, lse, do, ctx.causal, ctx.scale
-        )
-        return dq, dk, dv, None, None
+@_flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, causal, scale):
+    # Shapes for tracing; a meta tensor is refused as the wrapper refuses it.
+    if q.device.type == "meta":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    b, s, h, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b * h, 1, s),
+                                             dtype=torch.float32)
+
+
+def _flash_setup(ctx, inputs, output):
+    # The residuals of the reference's _flash_fwd: (q, k, v, O, LSE).
+    q, k, v, causal, scale = inputs
+    ctx.save_for_backward(q, k, v, *output)
+    ctx.causal, ctx.scale = causal, scale
+
+
+def _flash_backward(ctx, do, _dlse):
+    q, k, v, out, lse = ctx.saved_tensors
+    dq, dk, dv = flash_attention_backward(q, k, v, out, lse, do, ctx.causal,
+                                          ctx.scale)
+    return dq, dk, dv, None, None
+
+
+_flash_fwd_op.register_autograd(_flash_backward, setup_context=_flash_setup)
 
 
 def flash_attention(
@@ -309,11 +328,13 @@ def flash_attention(
 ) -> torch.Tensor:
     """Attention output [B, S, H, D], differentiable in q, k and v. Under
     ``torch.no_grad()`` it is one forward launch and saves nothing."""
-    return _FlashAttention.apply(q, k, v, causal, scale)
+    return torch.ops.ray_tpu_torch.flash_fwd(q, k, v, causal, scale)[0]
 
 
 # Read by models/llama.py: an attention function that saves its own
-# residuals for backward may sit between two remat regions ("flash_qkv").
+# residuals (the flash op) has its q/k/v products kept under the
+# "flash_qkv*" remat modes, as the reference tags the flash kernel's
+# inputs; under dense attention those modes keep no q/k/v.
 flash_attention.keeps_residuals = True
 
 

@@ -10,9 +10,11 @@ def rope_frequencies(
     head_dim: int,
     max_seq: int,
     theta: float = 500000.0,
-    device: str | torch.device = "cpu",
+    *,
+    device: str | torch.device,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Return (cos, sin) tables of shape [max_seq, head_dim // 2], fp32."""
+    """Return (cos, sin) tables of shape [max_seq, head_dim // 2], fp32, on
+    ``device`` (no default: a forgotten device must not mean the CPU)."""
     exponents = (
         torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
         / head_dim

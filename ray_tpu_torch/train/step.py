@@ -9,9 +9,11 @@ written out by hand to reproduce the reference's optax chain
 ``torch.optim.AdamW`` has no bf16 first moment and ``clip_grad_norm_``
 adds 1e-6 to the norm, so neither gives the same numbers.
 
-Meshes of more than one device, ring/ulysses attention, the MoE branch
-of the loss and the device-memory ledger claims are not ported yet
-(ROADMAP.md, Queue 1).
+The MoE model (models/moe.py) trains through the same entry points: an
+``MoEConfig`` selects its parameters and its loss, cross-entropy plus the
+load-balance loss. Meshes of more than one device, ring/ulysses attention
+and the device-memory ledger claims are not ported yet (ROADMAP.md,
+Queue 1).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from ray_tpu_torch.models.llama import (
     forward_with_aux,
     init_params,
 )
+from ray_tpu_torch.models.moe import MoEConfig, init_moe_params, moe_forward
 from ray_tpu_torch.ops.flash_attention import make_flash_attention
 
 Params = dict[str, Any]
@@ -178,9 +181,11 @@ def init_train_state(
     seed: int = 0,
     device: str | torch.device = "cuda",
 ) -> TrainState:
-    """fp32 parameters from ``seed`` (models/llama.py ``init_params``) on
-    ``device``, requiring grad, and a fresh optimizer state."""
-    params = init_params(cfg, seed, device=device)
+    """fp32 parameters from ``seed`` on ``device`` (``init_moe_params`` for
+    an ``MoEConfig``, else ``init_params``: the reference's
+    ``_model_fns``), requiring grad, and a fresh optimizer state."""
+    init = init_moe_params if isinstance(cfg, MoEConfig) else init_params
+    params = init(cfg, seed, device=device)
     for _, t in _flatten(params):
         t.requires_grad_(True)
     return TrainState(0, params, optimizer.init(params))
@@ -226,15 +231,23 @@ def loss_fn(
     cfg: LlamaConfig,
     attn_fn=None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-    """Next-token cross entropy of the dense model. batch["tokens"]:
-    [B, S+1] int."""
+    """Next-token cross entropy. batch["tokens"]: [B, S+1] int. For an
+    ``MoEConfig`` the loss is cross entropy plus the load-balance loss,
+    reported as ``metrics["aux_loss"]`` (``metrics["loss"]`` stays the
+    cross entropy)."""
     tokens = batch["tokens"]
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
-    hidden, _aux = forward_with_aux(
+    moe = isinstance(cfg, MoEConfig)
+    forward = moe_forward if moe else forward_with_aux
+    hidden, aux = forward(
         params, inputs, cfg, attn_fn=attn_fn, return_hidden=True
     )
     ce = chunked_cross_entropy(hidden, params["lm_head"], targets, cfg.dtype)
-    return ce, {"loss": ce, "perplexity": torch.exp(ce)}
+    metrics = {"loss": ce, "perplexity": torch.exp(ce)}
+    if not moe:
+        return ce, metrics
+    metrics["aux_loss"] = aux
+    return ce + aux, metrics
 
 
 def grad_step(cfg: LlamaConfig, attn_fn=None):
@@ -260,8 +273,9 @@ def grad_step(cfg: LlamaConfig, attn_fn=None):
 
 def make_train_step(cfg: LlamaConfig, optimizer: AdamW, attn_fn=None):
     """Returns ``train_step(state, batch) -> (state, metrics)``; metrics
-    are 0-dim tensors ``loss``, ``perplexity`` and ``grad_norm`` (before
-    the clip). The parameters and moments are updated in place."""
+    are 0-dim tensors ``loss``, ``perplexity``, ``grad_norm`` (before the
+    clip) and, for an MoE model, ``aux_loss``. The parameters and moments
+    are updated in place."""
     grads_of = grad_step(cfg, attn_fn)
 
     def train_step(state: TrainState, batch: dict[str, torch.Tensor]):

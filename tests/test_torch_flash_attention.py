@@ -37,6 +37,8 @@ CASES = [  # b, s, h, hkv, d, block, causal
     (1, 128, 8, 2, 32, 64, True),  # GQA
     (1, 128, 2, 2, 32, 64, False),  # full attention
     (1, 100, 2, 2, 32, 64, True),  # ragged: fitted block 50
+    (1, 128, 4, 2, 64, 64, True),  # head_dim 64 with GQA (moe_bench's)
+    (1, 100, 4, 2, 64, 64, False),  # head_dim 64, ragged, full
 ]
 
 

@@ -64,6 +64,29 @@ def test_backward_plain_matches_reference(s, causal):
 
 
 @pytest.mark.parametrize("s", [128, 120])
+@pytest.mark.parametrize("causal", [True, False])
+def test_backward_plain_matches_reference_head_dim_64(s, causal):
+    """As above at head_dim 64, the MoE preset's, with its 2:1 GQA."""
+    rng = np.random.default_rng(s + 64 + int(causal))
+    q, k, v, g = (rng.normal(size=(B, s, h, 64)).astype(np.float32)
+                  for h in (H, HKV, HKV, H))
+    scale = 64**-0.5
+    static = (causal, scale, s, s, s, s, True)
+    _, res = _flash_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                        *static)
+    want = _flash_bwd(causal, scale, s, s, s, s, True, res, jnp.asarray(g))
+    tq, tk, tv, tg = (torch.from_numpy(a) for a in (q, k, v, g))
+    o, lse = flash_attention_reference(tq, tk, tv, causal)
+    np.testing.assert_allclose(o.permute(0, 2, 1, 3).reshape(-1, s, 64),
+                               np.asarray(res[3]), **TOL)
+    got = flash_attention_backward_reference(tq, tk, tv, o, lse, tg, causal)
+    for name, t, j in zip(("dq", "dk", "dv"), got, want):
+        assert t.shape == tuple(j.shape), name
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), **TOL,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("s", [128, 120])
 def test_autograd_matches_dense_autograd(s):
     """Gradients of sum(O * g) through flash_attention equal those through
     the plain causal attention, including the GQA group sum of dk/dv."""

@@ -43,7 +43,7 @@ def test_rms_norm_matches_reference():
 
 def test_rope_frequencies_match_reference():
     cos_j, sin_j = jrope.rope_frequencies(64, 300, 500000.0)
-    cos_t, sin_t = rope_frequencies(64, 300, 500000.0)
+    cos_t, sin_t = rope_frequencies(64, 300, 500000.0, device="cpu")
     np.testing.assert_allclose(cos_t.numpy(), np.asarray(cos_j), **TOL)
     np.testing.assert_allclose(sin_t.numpy(), np.asarray(sin_j), **TOL)
 
@@ -52,7 +52,7 @@ def test_rope_frequencies_match_reference():
 def test_apply_rope_matches_reference(with_positions):
     x = _np(2, 2, 7, 4, 16)  # [B, S, H, D]
     cos_j, sin_j = jrope.rope_frequencies(16, 64)
-    cos_t, sin_t = rope_frequencies(16, 64)
+    cos_t, sin_t = rope_frequencies(16, 64, device="cpu")
     pos = None
     if with_positions:
         pos = np.random.default_rng(3).integers(0, 64, size=(2, 7))
@@ -104,6 +104,7 @@ def test_port_imports_neither_jax_nor_ray_tpu():
     files = sorted((REPO / "ray_tpu_torch").rglob("*.py"))
     files += [REPO / "chip_smoke.py", REPO / "paged_attention_chip.py"]
     assert len(files) > 10
+    assert REPO / "ray_tpu_torch" / "models" / "moe.py" in files
     bad = []
     for path in files:
         for mod in _imports(path):
