@@ -7,7 +7,9 @@ Phase 0  prints the card and builds the CUDA kernels from csrc/ (nvcc,
          one process per source, all at once); prints each kernel
          function's registers and spills, and any ptxas warning.
 Phase 1  holds each kernel against its plain PyTorch versions on the card:
-         the paged attention kernel (bf16 and fp32, batch 8 and 64,
+         the paged attention kernel at llama3_8b's heads (32 / 8 of 128)
+         and at mini's (12 / 4 of 64: padded rows) (bf16 and fp32, batch
+         8 and 64,
          K = 1 and 4, an inactive slot, a wider table, K = 4 one to three
          cells before a split boundary, batch 1 and 4 at up to 16k tokens
          in 256-page tables, poisoned cells past every slot's frontier;
@@ -25,8 +27,10 @@ Phase 1  holds each kernel against its plain PyTorch versions on the card:
          bf16 backward runs twice on the same inputs and its run-to-run
          max |ddq| must stay within one bf16 step (dq is summed with
          atomics). The same at moe_bench's 16 / 8 heads of head_dim 64,
-         and in bf16 at the bench_8b.py recipe's B=2 S=4096 with 32 / 8
-         heads of 128; a head_dim of 96 must be refused.
+         at mini's 12 / 4 heads of 64 (its dense prefill's 1024 tokens,
+         S = 1000 and 200), and in bf16 at the bench_8b.py recipe's B=2
+         S=4096 with 32 / 8 heads of 128; a head_dim of 96 must be
+         refused by all three kernels.
 Phase 2  serves 8 requests on a paged LLMEngine at full llama3_8b width
          and depth (random bf16 weights from a seed), greedy, then 8
          repetitive prompts with speculate=3; checks the paged kernel's
@@ -34,10 +38,14 @@ Phase 2  serves 8 requests on a paged LLMEngine at full llama3_8b width
          time by kernel class against the wall), recomputes the first
          decode step through the plain path, and checks that admitting
          a request that shares a live request's prefix pages leaves
-         those pages byte-identical.
+         those pages byte-identical; holds every greedy and speculative
+         token stream to the plain path's, teacher-forced
+         (stream_check). Then the same for mini at full width and depth
+         (12 layers, head_dim 64).
 Phase 3  serves one 1024-token prompt on a dense LLMEngine; checks that
          the flash kernel ran once per layer in prefill and recomputes
-         the prefill logits through the plain path.
+         the prefill logits through the plain path; llama3_8b, then
+         mini.
 Phase 4  frees the serving model and trains the bench preset (24 layers,
          d 1024, flash attention, remat "flash_qkv", fp32 parameters,
          bf16 compute, AdamW with a bf16 first moment) on 16 x 2049
@@ -59,13 +67,25 @@ Phase 5  trains moe_bench at full width and depth (6 layers, d 1024, 16 / 8
          oracle).
 Phase 6  the bench_8b.py recipe: 4 full llama3_8b layers, vocab 8192,
          remat "full", 2 x 4097 tokens, 2 warm-up and 5 timed steps.
+Phase 7  the training loop on the bench preset at full width and depth:
+         a token file written from the seed, read through TokenDataset
+         (shuffled windows of the file, prefetched, the ragged tail
+         dropped), 6 steps; again with a CheckpointManager save at step 3,
+         a restore into a fresh state (bit for bit the saved one) and
+         steps 4-6, whose losses must equal the uninterrupted run's
+         within 2^-8 relative; save and restore seconds and bytes. Then
+         train/memory.py's plan beside each peak it prices (phase 4's
+         remat full, dots and none, phase 6's recipe): within 15%, and
+         fitting the card, since each ran.
 Timing   each kernel at the main path's shapes (CUDA events, cold L2):
          its time, its plain version's, its bound (P1 also at the verify
          step's K = 4 and at batch 64, on lines of their own), and for the flash
          kernels the time of PyTorch's scaled_dot_product_attention
          (forward; forward + backward minus forward for the backward).
 
-Prints a ``{"kernels": [...]}`` line (the flash forward three times:
+Prints a ``{"kernels": [...]}`` line (the paged kernel twice,
+"paged_attention" at llama3_8b's first decode step and
+"paged_attention_d64" at mini's; the flash forward three times:
 "flash_fwd" at the prefill's shape, "flash_fwd_train" at the bench
 training step's, "flash_fwd_train_d64" at moe_bench's; the backward twice,
 "flash_bwd" and "flash_bwd_d64"; each with its own launches and error),
@@ -255,8 +275,12 @@ def paged_case(b, kq, lengths, max_pages, dtype, seed, page_size=64,
             positions.to(**to))
 
 
-def paged_checks(device="cuda"):
-    """P1 against its plain versions in every case, bf16 and fp32.
+def paged_checks(device="cuda", heads=(32, 8, 128)):
+    """P1 against its plain versions in every case, bf16 and fp32, at one
+    head layout ``heads`` = (query heads, KV heads, head_dim): llama3_8b's
+    by default, mini's (12, 4, 64) for the head_dim-64 build, where 3 query
+    rows per KV head at decode and 12 at K = 4 leave padded rows in the
+    kernel's row blocks of 4 and 16.
 
     bf16 is held to the split plain version at the wrapper's own split
     (``PAGED_BF16_TOL`` per element, ``PAGED_BF16_NORM`` by norm) and to
@@ -297,16 +321,18 @@ def paged_checks(device="cuda"):
         cases.append((f"B=4 K={kq} long (256 pages)", 4, kq,
                       lengths.tolist(), 256, ()))
     worst = {"err": 0.0, "excess": 0.0, "norm": 0.0}
+    h, hkv, dh = heads
     for dtype in (torch.bfloat16, torch.float32):
         for label, b, kq, lengths, max_pages, inactive in cases:
             args = paged_case(b, kq, lengths, max_pages, dtype, seed=b + kq,
+                              n_heads=h, n_kv=hkv, head_dim=dh,
                               inactive=inactive, device=device)
             pps = kernel_split(*args[:2], args[3]) if device == "cuda" else 1
             got = paged_attention(*args)
             split = paged_attention_split_reference(*args, pps)
             single = paged_attention_reference(*args)
             sync()
-            name = f"paged {label} {str(dtype)[6:]}"
+            name = f"paged H={h}/{hkv} D={dh} {label} {str(dtype)[6:]}"
             if dtype == torch.bfloat16:
                 atol, rtol = PAGED_BF16_TOL
                 e = compare(f"{name} vs split ({pps} pages/split)", got,
@@ -322,8 +348,9 @@ def paged_checks(device="cuda"):
                 compare(f"{name} vs split ({pps} pages/split)", got, split,
                         1e-4, 1e-4)
                 compare(f"{name} vs one block", got, single, 1e-4, 1e-4)
-    print(f"  paged bf16 vs split, worst: max_abs_err {worst['err']:.3e}, "
-          f"beyond rtol {worst['excess']:.3e}, norm-rel {worst['norm']:.3e}")
+    print(f"  paged H={h}/{hkv} D={dh} bf16 vs split, worst: max_abs_err "
+          f"{worst['err']:.3e}, beyond rtol {worst['excess']:.3e}, norm-rel "
+          f"{worst['norm']:.3e}")
     return worst["err"]
 
 
@@ -336,7 +363,9 @@ def phase1(device="cuda"):
     print("phase 1: kernels against their plain versions")
     # fp32 tolerance: the same arithmetic in another summation order.
     tol = {torch.bfloat16: FLASH_BF16_TOL, torch.float32: (1e-4, 1e-4)}
-    errs = {"paged": paged_checks(device), "flash": 0.0}
+    errs = {"paged": paged_checks(device),
+            "paged_d64": paged_checks(device, heads=MINI_HEADS),
+            "flash": 0.0}
 
     g = torch.Generator(device="cpu").manual_seed(2)
     for dtype in (torch.bfloat16, torch.float32):
@@ -358,10 +387,14 @@ def phase1(device="cuda"):
                 if dtype == torch.bfloat16:
                     errs["flash"] = max(errs["flash"], e)
     # The bench preset's heads (F1/F2 at head_dim 128), moe_bench's (head
-    # dim 64: the training shape, ragged S, fp32) and the bench_8b.py
-    # recipe's llama3_8b layers at B=2 S=4096 (bf16, its main path).
+    # dim 64: the training shape, ragged S, fp32), mini's (head_dim 64 with
+    # n_rep = 3: its dense prefill's 1024 tokens, ragged S) and the
+    # bench_8b.py recipe's llama3_8b layers at B=2 S=4096 (bf16, its main
+    # path).
     for kw in (dict(),
                dict(heads=MOE_HEADS, tag="_d64"),
+               dict(heads=MINI_HEADS, shapes=((1, 1024), (2, 1000), (2, 200)),
+                    train=(1, 1024), tag="_mini"),
                dict(heads=LLAMA8B_HEADS, shapes=((2, 4096),),
                     dtypes=(torch.bfloat16,), train=(2, 4096), tag="_8b")):
         for key, e in flash_bwd_checks(tol, device, **kw).items():
@@ -373,13 +406,20 @@ def phase1(device="cuda"):
 
 def head_dim_refused():
     """A CUDA tensor of a head size the kernels are not built for (96)
-    raises in both wrappers, and the C entry points refuse it too."""
-    # The module, not the function the package re-exports under its name.
+    raises in the three wrappers, and the C entry points refuse it too."""
+    # The modules, not the functions the package re-exports under their
+    # names.
     fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    pa = importlib.import_module("ray_tpu_torch.ops.paged_attention")
     q = torch.zeros((1, 128, 2, 96), dtype=torch.bfloat16, device="cuda")
     lse = torch.zeros((2, 1, 128), device="cuda")
+    pq = torch.zeros((2, 1, 8, 96), dtype=torch.bfloat16, device="cuda")
+    pool = torch.zeros((3, 2, 64, 96), dtype=torch.bfloat16, device="cuda")
+    tables = torch.ones((2, 2), dtype=torch.int32, device="cuda")
+    pos = torch.zeros((2,), dtype=torch.int32, device="cuda")
     for call in (lambda: fa.flash_attention_forward(q, q, q),
-                 lambda: fa.flash_attention_backward(q, q, q, q, lse, q)):
+                 lambda: fa.flash_attention_backward(q, q, q, q, lse, q),
+                 lambda: pa.paged_attention(pq, pool, pool, tables, pos)):
         try:
             call()
         except ValueError as e:
@@ -390,7 +430,14 @@ def head_dim_refused():
     err = fa._kernel()(1, *(q.data_ptr(),) * 4, lse.data_ptr(), 1, 128, 2,
                        2, 96, 1, stream)
     check(err != 0, "rtt_flash_fwd accepted head_dim 96")
-    print(f"  head_dim 96: both wrappers raise, rtt_flash_fwd returns {err}")
+    ws = torch.zeros((4096,), dtype=torch.float32, device="cuda")
+    p_err = pa._kernel()(1, pq.data_ptr(), pool.data_ptr(), pool.data_ptr(),
+                         tables.data_ptr(), pos.data_ptr(), pq.data_ptr(),
+                         ws.data_ptr(), ws.data_ptr(), ws.data_ptr(), 2, 1, 8,
+                         2, 96, 64, 2, 4, 1, 96**-0.5, stream)
+    check(p_err != 0, "rtt_paged_attention accepted head_dim 96")
+    print(f"  head_dim 96: the three wrappers raise, rtt_flash_fwd returns "
+          f"{err}, rtt_paged_attention {p_err}")
 
 
 def flash_inputs(b, s, dtype, seed, h=8, hkv=4, d=128, device="cuda"):
@@ -402,9 +449,11 @@ def flash_inputs(b, s, dtype, seed, h=8, hkv=4, d=128, device="cuda"):
             for sh in shapes]
 
 
-# (query heads, KV heads, head_dim) of the training paths: the bench
-# preset, moe_bench (and mini), llama3_8b (the bench_8b.py recipe).
+# (query heads, KV heads, head_dim): the bench preset, moe_bench, mini
+# (served paged and dense) and llama3_8b (served, and the bench_8b.py
+# recipe).
 BENCH_HEADS, MOE_HEADS, LLAMA8B_HEADS = (8, 4, 128), (16, 8, 64), (32, 8, 128)
+MINI_HEADS = (12, 4, 64)
 # Shapes (B, S) of the flash checks: the training step's 16 x 2048, a
 # ragged last tile (1000), a ragged second 128-row tile (200) and less
 # than one tile (64).
@@ -548,11 +597,15 @@ def logits_tolerance(name, got, want):
 
 
 def phase2(cfg, params, seed, device="cuda", max_seq=2048, page_size=64,
-           lengths=(20, 63, 64, 65, 200, 511, 900, 1500), max_tokens=32):
+           lengths=(20, 63, 64, 65, 200, 511, 900, 1500), max_tokens=32,
+           name="llama3_8b"):
+    """Paged serving of ``cfg``: plain greedy, then speculative; every
+    emitted token of both is held to the plain path's greedy choice
+    (:func:`stream_check`)."""
     from ray_tpu_torch.llm.engine import LLMEngine, SamplingParams
     from ray_tpu_torch.llm.paged_kv import paged_decode
 
-    print("phase 2: paged engine")
+    print(f"phase 2: paged engine, {name}")
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lengths]
     sp = SamplingParams(max_tokens=max_tokens)
@@ -623,6 +676,8 @@ def phase2(cfg, params, seed, device="cuda", max_seq=2048, page_size=64,
           f"paged kernel launched {p_spec} times for "
           f"{st_spec['decode_steps']} verify steps x {cfg.n_layers} layers")
     del spec
+    stream_check(cfg, params, prompts, outs, "greedy", device)
+    stream_check(cfg, params, spec_prompts, spec_outs, "speculative", device)
     prefix_pages_check(cfg, params, prompts[-1], seed, device)
     print(f"  greedy: {steps} decode steps, "
           f"{p_launch} kernel launches; speculative: "
@@ -636,6 +691,38 @@ def phase2(cfg, params, seed, device="cuda", max_seq=2048, page_size=64,
         "spec_tokens_per_s": sum(spec_tokens[1:]) / sum(spec_s[1:]),
         "first_positions": rec["positions"].cpu().tolist(),
     }
+
+
+def stream_check(cfg, params, prompts, outs, label, device="cuda"):
+    """Each served token stream against the plain path, teacher-forced:
+    prompt + stream through the plain dense prefill (no kernel) in one
+    pass; at every position the emitted token must be the plain argmax up
+    to the bf16 tolerance of logits_tolerance (its logit within 2 x 5% of
+    the logits' range of the row's max), so a stream equals the plain
+    path's wherever the plain path's choice is clear. Prints how many
+    tokens are its exact argmax."""
+    from ray_tpu_torch.llm.kv_cache import forward_prefill, init_kv_cache
+
+    exact = total = 0
+    for prompt, out in zip(prompts, outs):
+        toks = list(prompt) + list(out[:-1])
+        cache = init_kv_cache(cfg, 1, len(toks), device)
+        logits, _ = forward_prefill(
+            params, torch.tensor([toks], device=device), cache, 0, cfg,
+            use_flash=False,
+        )
+        z = logits[0, len(prompt) - 1:].float()  # row i predicts out[i]
+        atol = 0.05 * float(z.abs().max())
+        chosen = z.gather(1, torch.tensor(out, device=device)[:, None])[:, 0]
+        ok = chosen >= z.max(dim=-1).values - 2 * atol
+        check(bool(ok.all()), f"{label} stream: a token is not the plain "
+              f"path's choice at positions {(~ok).nonzero().tolist()}")
+        exact += int((z.argmax(-1) == torch.tensor(out, device=device))
+                     .sum())
+        total += len(out)
+        del cache, logits
+    print(f"  {label} streams vs the plain path (teacher-forced): "
+          f"{total} tokens within tolerance, {exact} its exact argmax")
 
 
 def profile_decode(engine, prompts, step_wall_s, n_steps=4, label="decode"):
@@ -714,11 +801,11 @@ def prefix_pages_check(cfg, params, prompt, seed, device="cuda",
 
 
 def phase3(cfg, params, seed, device="cuda", max_seq=2048, prompt_len=1024,
-           max_tokens=32):
+           max_tokens=32, name="llama3_8b"):
     from ray_tpu_torch.llm.engine import LLMEngine, SamplingParams
     from ray_tpu_torch.llm.kv_cache import forward_prefill, init_kv_cache
 
-    print("phase 3: dense engine")
+    print(f"phase 3: dense engine, {name}")
     rng = np.random.default_rng(seed + 1)
     prompt = rng.integers(0, cfg.vocab_size, prompt_len).tolist()
     eng = LLMEngine(cfg, max_batch=1, max_seq=max_seq, params=params,
@@ -917,7 +1004,7 @@ def train_run(cfg, seed, device, batch, seq, warmup, steps, f1, f2, label):
     launches = [0, 0]
     for i in range(warmup + steps):
         if i == warmup:
-            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.reset_peak_memory_stats()  # allocated and reserved
         reset_counts()
         t0 = time.perf_counter()
         state, m = step(state, data)
@@ -945,9 +1032,11 @@ def train_run(cfg, seed, device, batch, seq, warmup, steps, f1, f2, label):
           f"{label}: step 0 loss {losses[0]:.4f} is not within 0.5 of "
           f"ln {cfg.vocab_size} = {math.log(cfg.vocab_size):.4f}")
     step_s = sum(wall) / len(wall)
+    peak = torch.cuda.max_memory_allocated()
     return dict(state=state, step=step, data=data, opt=opt, losses=losses,
-                aux=aux, step_s=step_s, tps=batch * seq / step_s,
-                peak=torch.cuda.max_memory_allocated(), launches=launches)
+                aux=aux, step_s=step_s, tps=batch * seq / step_s, peak=peak,
+                slack=torch.cuda.max_memory_reserved() - peak,
+                launches=launches)
 
 
 def phase4(seed, device="cuda", batch=16, seq=2048, warmup=2, steps=4):
@@ -1022,8 +1111,9 @@ def remat_modes(cfg, params, data,
             loss, norm = float(m["loss"]), float(global_norm(grads))
             del grads
         peak = torch.cuda.max_memory_allocated()
-        out[mode] = dict(ms=dt * 1e3, peak_gib=peak / 2**30, f1=f1, f2=f2,
-                         loss=loss, grad_norm=norm)
+        out[mode] = dict(ms=dt * 1e3, peak=peak, peak_gib=peak / 2**30, f1=f1,
+                         f2=f2, loss=loss, grad_norm=norm,
+                         slack=torch.cuda.max_memory_reserved() - peak)
         base = out["flash_qkv"]
         rel = abs(loss - base["loss"]) / base["loss"]
         limit = 2e-2 if mode == "flash_qkv_ffn8" else 1e-3
@@ -1112,12 +1202,10 @@ def phase6(seed, device="cuda", n_layers=4, batch=2, seq=4096, warmup=2,
     """The bench_8b.py recipe: 4 full llama3_8b layers (d 4096, 32/8 heads,
     d_ff 14336), vocab 8192, flash attention, remat "full", batch 2 x
     4096 tokens, AdamW with a bf16 first moment."""
-    from ray_tpu_torch.models.llama import PRESETS
+    from ray_tpu_torch.train.memory import bench8b_config
 
     print("phase 6: the bench_8b.py recipe, 4 llama3_8b layers")
-    cfg = dataclasses.replace(PRESETS["llama3_8b"], n_layers=n_layers,
-                              vocab_size=8192, attn_impl="flash",
-                              remat="full")
+    cfg = bench8b_config(n_layers)
     r = train_run(cfg, seed, device, batch, seq, warmup, steps,
                   2 * n_layers, n_layers, "bench_8b")
     per_layer = r["step_s"] * 1e3 / n_layers
@@ -1126,7 +1214,249 @@ def phase6(seed, device="cuda", n_layers=4, batch=2, seq=4096, warmup=2,
           f"{r['peak'] / 2**30:.2f} GiB ({cfg.num_params() / 1e9:.3f} B "
           f"parameters)")
     return {"tokens_per_s": r["tps"], "per_layer_ms": per_layer,
-            "peak_gib": r["peak"] / 2**30, "losses": r["losses"]}
+            "peak": r["peak"], "peak_gib": r["peak"] / 2**30,
+            "slack": r["slack"], "losses": r["losses"], "n_layers": n_layers,
+            "batch": batch, "seq": seq}
+
+
+def batch_to_device(batch, device):
+    """A TokenDataset batch (host uint32) on the device: viewed as int32
+    (ids are below 2^31; the step indexes with them and takes .long() of
+    the targets), pinned, copied without blocking on the current
+    stream."""
+    t = torch.from_numpy(batch["tokens"].view(np.int32))
+    if torch.device(device).type == "cuda":
+        t = t.pin_memory().to(device, non_blocking=True)
+    return {"tokens": t}
+
+
+def loop_run(cfg, opt, state, ds, batch, device, start, stop):
+    """Steps ``start`` .. ``stop`` - 1 of the training loop: batches from
+    ``ds`` (a fresh TokenDataset, so its first epoch; a resumed loop skips
+    the ``start`` batches it has trained on), each step ending in a sync.
+    Returns the state, the losses and the wall time of each step, from
+    asking for the batch to the sync."""
+    from ray_tpu_torch.train import jit_train_step
+
+    step = jit_train_step(cfg, opt)
+    losses, wall = [], []
+    batches = ds.iter_batches(batch)
+    for i in range(stop):
+        t0 = time.perf_counter()
+        host = next(batches)
+        if i < start:
+            continue
+        reset_counts()
+        state, m = step(state, batch_to_device(host, device))
+        sync()
+        wall.append(time.perf_counter() - t0)
+        _, n1, n2 = counts()
+        check(n1 == n2 == cfg.n_layers,
+              f"loop step {i}: {n1} + {n2} flash launches")
+        losses.append(float(m["loss"]))
+    batches.close()
+    return state, losses, wall
+
+
+def phase7(seed, device="cuda", batch=16, seq=2048, steps=6, save_at=3,
+           cfg=None):
+    """The single-device training loop on the bench preset at full width
+    and depth (24 layers, remat flash_qkv): a token file written from the
+    seed, read through TokenDataset (shuffled, prefetched, the ragged tail
+    dropped), ``steps`` steps; then again with a CheckpointManager save at
+    step ``save_at``, a restore into a fresh state (bit for bit the saved
+    one) and the steps after it. The resumed losses must equal the
+    uninterrupted ones within one bf16 step (2^-8) relative, the bound
+    phase 1 holds the bf16 F2's run-to-run dq spread to (its atomics make
+    the card's trajectory not bit-reproducible; the CPU tests hold resume
+    bit for bit)."""
+    import os
+    import tempfile
+
+    from ray_tpu_torch.models.llama import PRESETS
+    from ray_tpu_torch.train import (
+        CheckpointManager,
+        TokenDataset,
+        init_train_state,
+        make_optimizer,
+        train_state_dict,
+    )
+
+    print("phase 7: training loop, bench preset (token file, TokenDataset, "
+          "checkpoint, resume)")
+    cfg = cfg or dataclasses.replace(PRESETS["bench"], attn_impl="flash")
+    opt = make_optimizer(lr=3e-4, warmup=1, total_steps=steps,
+                         mu_dtype=torch.bfloat16)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        path = os.path.join(tmp, "tokens.bin")
+        windows = steps * batch + batch // 2  # a ragged tail
+        np.random.default_rng(seed).integers(
+            0, cfg.vocab_size, size=windows * (seq + 1) + 7, dtype=np.uint32
+        ).tofile(path)
+        corpus = np.fromfile(path, dtype=np.uint32)
+
+        def dataset():
+            return TokenDataset(path, seq, seed=seed)
+
+        ds = dataset()
+        check(ds.num_samples == windows, f"{ds.num_samples} windows")
+        epoch = [b["tokens"] for b in ds.iter_batches(batch)]
+        ds.close()
+        check(len(epoch) == steps, f"{len(epoch)} batches, the tail kept")
+        # Every row is a distinct window of the file, not in file order.
+        index = {w.tobytes(): i for i, w in enumerate(
+            corpus[: windows * (seq + 1)].reshape(windows, seq + 1))}
+        order = [index.get(row.tobytes(), -1)
+                 for e in epoch for row in e]
+        check(min(order) >= 0 and len(set(order)) == len(order)
+              and order != sorted(order),
+              "the batches are not distinct shuffled windows of the file")
+
+        # The uninterrupted run.
+        torch.cuda.reset_peak_memory_stats()
+        ds = dataset()
+        state = init_train_state(cfg, opt, seed=seed, device=device)
+        state, want, wall = loop_run(cfg, opt, state, ds, batch, device, 0,
+                                     steps)
+        ds.close()
+        peak = torch.cuda.max_memory_allocated()
+        tps = batch * seq * (steps - 1) / sum(wall[1:])
+        whole = train_state_dict(state)
+        del state
+        gc.collect()
+
+        # Train to save_at, save, restore into a fresh state, train on.
+        ds = dataset()
+        state = init_train_state(cfg, opt, seed=seed, device=device)
+        state, got, _ = loop_run(cfg, opt, state, ds, batch, device, 0,
+                                 save_at)
+        ds.close()
+        mgr = CheckpointManager(os.path.join(tmp, "ckpt"), num_to_keep=2)
+        sync()
+        t0 = time.perf_counter()
+        ck_path = mgr.save(state.step, state, metrics={"loss": got[-1]})
+        save_s = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in os.scandir(ck_path))
+        fresh = init_train_state(cfg, opt, seed=seed + 1, device=device)
+        sync()
+        t0 = time.perf_counter()
+        where, restored = mgr.restore_latest_valid(target=fresh)
+        sync()
+        restore_s = time.perf_counter() - t0
+        check(where == ck_path and restored.step == save_at
+              and restored.opt_state.count == save_at,
+              f"restored {where} at step {restored.step}")
+        saved, back = train_state_dict(state), train_state_dict(restored)
+        check(saved.keys() == back.keys() and all(
+            back[k].dtype == saved[k].dtype
+            and back[k].device == saved[k].device
+            and torch.equal(back[k], saved[k]) for k in saved),
+            "the restored state differs from the saved one")
+        del state, fresh, saved, back
+        gc.collect()
+        ds = dataset()
+        restored, rest, _ = loop_run(cfg, opt, restored, ds, batch, device,
+                                     save_at, steps)
+        ds.close()
+        check(restored.step == steps, f"resumed run ended at {restored.step}")
+        # The two runs' parameters and moments after the last step, each
+        # kind as one vector (they differ by the bf16 F2's run-to-run
+        # spread only).
+        ended = train_state_dict(restored)
+        drift = {}
+        for kind in ("params", "mu", "nu"):
+            keys = [k for k in whole if k.startswith(kind + "/")]
+            diff = sum(float((ended[k].float() - whole[k].float()).square()
+                             .sum()) for k in keys)
+            norm = sum(float(whole[k].float().square().sum()) for k in keys)
+            drift[kind] = math.sqrt(diff / norm)
+        del restored, ended, whole
+    got += rest
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    print("  losses, uninterrupted: " + ", ".join(f"{x:.6f}" for x in want))
+    print("  losses, resumed at step "
+          f"{save_at}: " + ", ".join(f"{x:.6f}" for x in got)
+          + f"; largest relative difference {max(rel):.3e} (before the "
+          f"save {max(rel[:save_at]):.3e}; limit 2^-8)")
+    print(f"  state after step {steps}, resumed vs uninterrupted, relative "
+          f"difference: " + ", ".join(f"{k} {v:.3e}"
+                                      for k, v in drift.items()))
+    check(all(math.isfinite(x) for x in want + got)
+          and abs(want[0] - math.log(cfg.vocab_size)) < 0.5,
+          f"loop losses {want} (step 0 not within 0.5 of ln V)")
+    check(all(r <= 2**-8 for r in rel),
+          "the resumed loss trajectory leaves the uninterrupted one")
+    print(f"  checkpoint of the bench state: {nbytes / 1e9:.3f} GB, save "
+          f"{save_s:.2f} s ({nbytes / save_s / 1e9:.2f} GB/s), restore "
+          f"{restore_s:.2f} s ({nbytes / restore_s / 1e9:.2f} GB/s)")
+    print(f"  loop: {tps:.1f} tokens/s through TokenDataset ({batch} x "
+          f"{seq} tokens a step, steps 1-{steps - 1}), peak memory "
+          f"{peak / 2**30:.2f} GiB")
+    return {"cfg": cfg, "tokens_per_s": tps, "save_s": save_s,
+            "restore_s": restore_s, "ckpt_bytes": nbytes, "peak": peak,
+            "losses": want, "resumed": got, "max_rel": max(rel),
+            "drift": drift}
+
+
+def planner_checks(p4, p6, p7, batch=16, seq=2048):
+    """train/memory.py's plan beside each peak it prices, measured in this
+    run: the bench preset under remat full, dots and none (phase 4, one
+    forward + backward with the train state resident), the bench_8b.py
+    recipe (phase 6, whole steps). Each prediction must be within 15% of
+    torch.cuda.max_memory_allocated, and each must fit the card, since
+    each ran. Prints the working-set factor this run implies for each (the
+    fit PERF.md keeps), the memory outside the caching allocator and the
+    allocator's own slack, and the loop's flash_qkv peak (priced as
+    "none", the reference's rule) for information."""
+    from ray_tpu_torch.train import memory
+
+    def implied(plan, cfg, measured, per_layer):
+        unit = plan.batch * plan.seq * cfg.d_ff * cfg.dtype.itemsize
+        boundary = cfg.n_layers * plan.batch * plan.seq * cfg.d_model \
+            * cfg.dtype.itemsize
+        fixed = plan.total_bytes - plan.activation_bytes + boundary
+        return (measured - fixed) / (unit * (cfg.n_layers if per_layer
+                                             else 1))
+
+    cases = []
+    for mode in ("full", "dots", "none"):
+        cfg = dataclasses.replace(p4["cfg"], remat=mode)
+        run = p4["modes"][mode]
+        cases.append((f"bench remat {mode}", cfg,
+                      memory.plan(cfg, batch, seq), run["peak"],
+                      run["slack"], mode != "full"))
+    cfg8 = memory.bench8b_config(p6["n_layers"])
+    cases.append(("bench_8b recipe", cfg8,
+                  memory.plan_bench8b(p6["n_layers"], p6["batch"],
+                                      p6["seq"]), p6["peak"], p6["slack"],
+                  False))
+    out = {}
+    for label, cfg, plan, measured, slack, per_layer in cases:
+        err = plan.total_bytes / measured - 1
+        factor = implied(plan, cfg, measured, per_layer)
+        print(f"  planner {label}: predicted {plan.total_gb:.2f} GiB, "
+              f"measured {measured / 2**30:.2f} GiB ({err:+.1%}); fits "
+              f"{plan.fits} (usable {plan.usable_bytes / 2**30:.2f} GiB); "
+              f"implied factor {factor:.3f}; allocator slack at the peak "
+              f"{slack / 2**30:.3f} GiB")
+        check(abs(err) <= 0.15 and plan.fits,
+              f"planner {label}: {plan.total_gb:.2f} GiB against "
+              f"{measured / 2**30:.2f} GiB measured, fits {plan.fits}")
+        out[label] = dict(pred_gib=plan.total_gb, peak_gib=measured / 2**30,
+                          err=err, factor=factor, slack=slack)
+    loop = memory.plan(p7["cfg"], batch, seq)
+    print(f"  planner training loop (remat flash_qkv, priced as none): "
+          f"predicted {loop.total_gb:.2f} GiB, measured "
+          f"{p7['peak'] / 2**30:.2f} GiB")
+    free, total = torch.cuda.mem_get_info()
+    outside = total - free - torch.cuda.memory_reserved()
+    slack = max(v["slack"] for v in out.values())
+    print(f"  card {total / 2**30:.2f} GiB: {outside / 2**30:.3f} GiB outside "
+          f"the caching allocator (context, libraries) + largest allocator "
+          f"slack at a priced peak {slack / 2**30:.3f} GiB = "
+          f"{(outside + slack) / 2**30:.3f} GiB; reserve priced "
+          f"{memory.ALLOCATOR_RESERVE_BYTES / 2**30:.3f} GiB")
+    return out
 
 
 # ------------------------------------------------------------ timing
@@ -1181,7 +1511,26 @@ def time_paged(cfg, positions, kq, max_pages=32, page=64, seed=7):
                 pages_per_split=kernel_split(*args[:2], args[3]))
 
 
-def timing_serving(cfg, positions, errs):
+def paged_row(cfg, positions, err, name):
+    """P1 at ``cfg``'s heads: the verify step (batch 8, K = 4) and decode
+    at batch 64 (lengths of phase 1's B=64 cases) on lines of their own,
+    then the row of the kernels line, the first decode step of phase 2
+    (batch 8, K = 1, 32-page table)."""
+    lengths64 = np.random.default_rng(1).integers(1, 2000, size=64).tolist()
+    for label, pos, kq in (("B=8 K=4 (verify)", positions, 4),
+                           ("B=64 K=1", lengths64, 1)):
+        r = time_paged(cfg, pos, kq)
+        print(f"  {name} {label}: {r['ms']:.4f} ms (plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
+              f"{r['bound_by']}; {r['pages_per_split']} pages per split)")
+    r = time_paged(cfg, positions, 1)
+    print(f"  {name} at the first decode step: "
+          f"{r.pop('pages_per_split')} pages per split, host time per "
+          f"wrapper call {r.pop('host_us'):.1f} us")
+    return dict(r, max_abs_err=err)
+
+
+def timing_serving(cfg, positions, errs, mini_cfg, mini_positions):
     import torch.nn.functional as F
 
     from ray_tpu_torch.ops.flash_attention import (
@@ -1193,21 +1542,11 @@ def timing_serving(cfg, positions, errs):
     rows = {}
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     elt = torch.finfo(cfg.dtype).bits // 8
-    # P1 beside the main row: the verify step (batch 8, K = 4) and decode
-    # at batch 64 (lengths of phase 1's B=64 cases).
-    lengths64 = np.random.default_rng(1).integers(1, 2000, size=64).tolist()
-    for label, pos, kq in (("B=8 K=4 (verify)", positions, 4),
-                           ("B=64 K=1", lengths64, 1)):
-        r = time_paged(cfg, pos, kq)
-        print(f"  paged_attention {label}: {r['ms']:.4f} ms (plain "
-              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
-              f"{r['bound_by']}; {r['pages_per_split']} pages per split)")
-    # P1: the first decode step of phase 2 (batch 8, K = 1, 32-page table).
-    r = time_paged(cfg, positions, 1)
-    print(f"  paged_attention at the first decode step: "
-          f"{r.pop('pages_per_split')} pages per split, host time per "
-          f"wrapper call {r.pop('host_us'):.1f} us")
-    rows["paged_attention"] = dict(r, max_abs_err=errs["paged"])
+    rows["paged_attention"] = paged_row(cfg, positions, errs["paged"],
+                                        "paged_attention")
+    # P1 at head_dim 64, mini's 12 / 4 heads.
+    rows["paged_attention_d64"] = paged_row(
+        mini_cfg, mini_positions, errs["paged_d64"], "paged_attention_d64")
     # F1: the dense prefill of phase 3 (B = 1, S = 1024, causal).
     s = 1024
     g = torch.Generator(device="cpu").manual_seed(8)
@@ -1331,19 +1670,33 @@ def main() -> int:
           f"{cfg.dtype}, drawn in {time.time() - t0:.1f} s")
     p2 = phase2(cfg, params, args.seed)
     p3 = phase3(cfg, params, args.seed)
-    rows = timing_serving(cfg, p2["first_positions"], errs)
-    print(f"decode: {p2['decode_tokens_per_s']:.1f} tokens/s at batch 8, "
-          f"speculative {p2['spec_tokens_per_s']:.1f} tokens/s; "
-          f"TTFT mean {p2['ttft_s_mean']:.3f} s, max {p2['ttft_s_max']:.3f}"
-          f" s (8 prompts admitted in one step); dense 1024-token TTFT "
-          f"{p3['ttft_s']:.3f} s [{card}]")
     print(f"serving peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-
-    # The serving model goes before the trainer's state comes.
     del params
     gc.collect()
     torch.cuda.empty_cache()
+
+    # mini (head_dim 64, 12 / 4 heads) at full width and depth.
+    mini = PRESETS["mini"]
+    params = init_params(mini, args.seed, device="cuda", dtype=mini.dtype)
+    print(f"weights: mini, {mini.num_params() / 1e6:.1f} M parameters in "
+          f"{mini.dtype}")
+    m2 = phase2(mini, params, args.seed, name="mini")
+    m3 = phase3(mini, params, args.seed, name="mini")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rows = timing_serving(cfg, p2["first_positions"], errs, mini,
+                          m2["first_positions"])
+    for name, a, b in (("llama3_8b", p2, p3), ("mini", m2, m3)):
+        print(f"decode {name}: {a['decode_tokens_per_s']:.1f} tokens/s at "
+              f"batch 8, speculative {a['spec_tokens_per_s']:.1f} tokens/s; "
+              f"TTFT mean {a['ttft_s_mean']:.3f} s, max "
+              f"{a['ttft_s_max']:.3f} s (8 prompts admitted in one step); "
+              f"dense 1024-token TTFT {b['ttft_s']:.3f} s [{card}]")
+
+    # The serving models go before the trainer's state comes.
     p4 = phase4(args.seed)
     rows.update(timing_training(p4["cfg"], errs))
     gc.collect()
@@ -1353,6 +1706,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     p6 = phase6(args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    p7 = phase7(args.seed)
+    plans = planner_checks(p4, p6, p7)
     prof = p4["profile"]
     print(f"train: {p4['tokens_per_s']:.1f} tokens/s, "
           f"{p4['peak_share']:.2%} of dense bf16 peak, step "
@@ -1379,10 +1736,20 @@ def main() -> int:
     print(f"bench_8b recipe: {p6['tokens_per_s']:.1f} tokens/s, "
           f"{p6['per_layer_ms']:.1f} ms per layer, peak memory "
           f"{p6['peak_gib']:.2f} GiB [{card}]")
+    print(f"training loop (bench, TokenDataset): {p7['tokens_per_s']:.1f} "
+          f"tokens/s, peak memory {p7['peak'] / 2**30:.2f} GiB; checkpoint "
+          f"{p7['ckpt_bytes'] / 1e9:.3f} GB saved in {p7['save_s']:.2f} s, "
+          f"restored in {p7['restore_s']:.2f} s; resumed losses within "
+          f"{p7['max_rel']:.3e} relative [{card}]")
+    print("memory planner, predicted / measured GiB: "
+          + "; ".join(f"{k} {v['pred_gib']:.2f} / {v['peak_gib']:.2f} "
+                      f"({v['err']:+.1%}, factor {v['factor']:.3f})"
+                      for k, v in plans.items()) + f" [{card}]")
     print(f"run took {time.time() - t_start:.1f} s")
     # One row per kernel and main-path shape: the forward kernel runs in
     # the dense prefill (phase 3) and in training (phase 4).
     launches = {"paged_attention": p2["launches"],
+                "paged_attention_d64": m2["launches"],
                 "flash_fwd": p3["launches"],
                 "flash_fwd_train": p4["f1_launches"],
                 "flash_bwd": p4["f2_launches"],
@@ -1390,9 +1757,11 @@ def main() -> int:
                 "flash_bwd_d64": p5["f2_launches"]}
     fwd = ("ray_tpu_torch/csrc/flash_fwd.cu",
            "ray_tpu/ops/pallas/flash_attention.py:48")
+    paged = ("ray_tpu_torch/csrc/paged_attention.cu",
+             "ray_tpu/ops/pallas/paged_attention.py:59")
     meta = {
-        "paged_attention": ("ray_tpu_torch/csrc/paged_attention.cu",
-                            "ray_tpu/ops/pallas/paged_attention.py:59"),
+        "paged_attention": paged,
+        "paged_attention_d64": paged,
         "flash_fwd": fwd,
         "flash_fwd_train": fwd,
         "flash_bwd": ("ray_tpu_torch/csrc/flash_bwd.cu",

@@ -11,8 +11,9 @@ compiles three faulty copies of ``ray_tpu_torch/csrc/paged_attention.cu``
 in a temporary directory (a split dropped from the combine, page 1 of every
 split left out, the exp(m_s - M) rescale left out), swaps each in through
 the wrapper's ``_kernel`` and checks that it fails chip_smoke.py's bf16
-limits against ``paged_attention_split_reference``; it exits non-zero if a
-fault passes. The sources in the checkout are never changed. Both exit 1
+limits against ``paged_attention_split_reference``, at llama3_8b's heads
+(32 / 8 of 128) and at mini's (12 / 4 of 64, with padded rows); it exits
+non-zero if a fault passes at either head size. The sources in the checkout are never changed. Both exit 1
 without a CUDA device.
 """
 
@@ -95,12 +96,15 @@ def mutants() -> int:
                                         stderr=subprocess.STDOUT, text=True),
                        lib)
     argtypes = pa._kernel().argtypes
-    cases = [("B=8 K=1 first decode step", 8, 1, FIRST_STEP, 32),
-             ("B=8 K=4 first decode step", 8, 4, FIRST_STEP, 32),
-             ("B=8 K=4 64 pages", 8, 4,
-              [125, 126, 127, 253, 254, 255, 381, 3000], 64),
-             ("B=4 K=1 16k tokens", 4, 1, [16383, 9000, 4097, 12345], 256),
-             ("B=64 K=1", 64, 1, BATCH64, 32)]
+    shapes = [("B=8 K=1 first decode step", 8, 1, FIRST_STEP, 32),
+              ("B=8 K=4 first decode step", 8, 4, FIRST_STEP, 32),
+              ("B=8 K=4 64 pages", 8, 4,
+               [125, 126, 127, 253, 254, 255, 381, 3000], 64),
+              ("B=4 K=1 16k tokens", 4, 1, [16383, 9000, 4097, 12345], 256),
+              ("B=64 K=1", 64, 1, BATCH64, 32)]
+    cases = [(f"D={heads[2]} {label}", *rest, heads)
+             for heads in (cs.LLAMA8B_HEADS, cs.MINI_HEADS)
+             for label, *rest in shapes]
     atol, rtol = cs.PAGED_BF16_TOL
     real, passed = pa._kernel, []
     for name, (proc, lib) in procs.items():
@@ -110,10 +114,11 @@ def mutants() -> int:
         fn = ctypes.CDLL(str(lib)).rtt_paged_attention
         fn.restype, fn.argtypes = ctypes.c_int, argtypes
         pa._kernel = lambda fn=fn: fn
-        fails = 0
-        for label, b, kq, pos, max_pages in cases:
+        fails = {64: 0, 128: 0}
+        for label, b, kq, pos, max_pages, (h, hkv, dh) in cases:
             args = cs.paged_case(b, kq, pos, max_pages, torch.bfloat16,
-                                 seed=b + kq)
+                                 seed=b + kq, n_heads=h, n_kv=hkv,
+                                 head_dim=dh)
             got = pa.paged_attention(*args).float()
             want = pa.paged_attention_split_reference(
                 *args, pa.kernel_split(*args[:2], args[3])).float()
@@ -122,14 +127,16 @@ def mutants() -> int:
             rel = float(err.norm() / want.norm())
             bad = (not bool(torch.isfinite(got).all()) or excess > atol
                    or rel > cs.PAGED_BF16_NORM)
-            fails += bad
+            fails[dh] += bad
             print(f"  {name} | {label}: beyond rtol {excess:.3e} (atol "
                   f"{atol}), norm-rel {rel:.3e} (limit "
                   f"{cs.PAGED_BF16_NORM}) {'fails' if bad else 'PASSES'}")
         pa._kernel = real
-        print(f"{name}: fails the limits in {fails} of {len(cases)} cases")
-        if not fails:
-            passed.append(name)
+        for dh, n in fails.items():
+            print(f"{name}: fails the limits in {n} of {len(shapes)} cases "
+                  f"at head_dim {dh}")
+            if not n:
+                passed.append(f"{name} (head_dim {dh})")
     if passed:
         print(f"faults that pass the limits: {passed}")
     return 1 if passed else 0

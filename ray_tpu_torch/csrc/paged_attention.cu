@@ -9,8 +9,9 @@
 // What bounds it on the H100: bytes. A step reads every live K/V page of
 // every slot once (2 * pages * Hkv * P * Dh * 2 bytes in bf16) and does
 // only 2 * n_rep * K flops per K/V element (4 per byte at 32/8 heads and
-// K = 1), far below the ~295 flops per byte where the tensor cores would
-// become the limit. So the design is about keeping the HBM busy:
+// K = 1; 3 per byte at mini's 12/4 heads of 64), far below the ~295 flops
+// per byte where the tensor cores would become the limit. So the design
+// is about keeping the HBM busy:
 //
 // - Split the page walk (flash-decoding). The grid is (KV head x row
 //   block, slot, split); a split covers `pages_per_split` table entries,
@@ -18,7 +19,8 @@
 //   that starts past the slot's last live page returns at once: the
 //   combine reads the live splits only, so its weight is exactly 0.
 // - Bulk asynchronous copies. With the head-major pool one (page, KV head)
-//   tile is one contiguous run (64 x 128 x 2 = 16 KB in bf16), so thread 0
+//   tile is one contiguous run (64 x Dh x 2 bytes in bf16: 16 KB at
+//   Dh 128, 8 KB at 64; the barrier's expected bytes follow), so thread 0
 //   copies each K and V tile with one cp.async.bulk that completes on an
 //   mbarrier; a ring of up to kMaxStages pages is in flight per block. The
 //   tiles stay in the input dtype in shared memory.
@@ -27,7 +29,9 @@
 //   q for all R rows in registers; a reduce-scatter across the L lanes
 //   leaves each lane whole scores (4 flops per byte need no tensor cores,
 //   and the unswizzled bulk-copied tile would make mma fragment loads
-//   conflict 8 ways). For p.v each lane owns 4 head columns of all rows.
+//   conflict 8 ways). For p.v each lane owns Dh / 32 head columns of all
+//   rows (4 at 128, 2 at 64: one 8- or 4-byte read per cell, 32 lanes on
+//   one contiguous row, conflict-free).
 //   One __syncthreads per page: the warps' row maxima meet in shared
 //   memory, so the running max (and the point where p is rounded to v's
 //   dtype) is the split's, page by page, as in
@@ -36,7 +40,14 @@
 //   and l to a workspace; the last block of a (slot, KV head, row block)
 //   to take a ticket combines them: O = sum_s exp(m_s - M) O_s /
 //   sum_s exp(m_s - M) l_s, M = max_s m_s, and resets the ticket. A slot
-//   whose pages fit one split writes its output directly.
+//   whose pages fit one split writes its output directly. Thread t
+//   finishes head column t % Dh of rows t / Dh, t / Dh + 128 / Dh, ...
+//   (all R rows at 128, every other row at 64); padded rows (n_rep * K
+//   below R) are computed but never written, and weigh nothing in the
+//   combine.
+//
+// Built for head sizes 64 and 128 (mini's and llama3_8b's) from this one
+// template, and for 64-token pages.
 
 #include <cstddef>
 #include <cstdint>
@@ -46,13 +57,18 @@
 namespace rtt {
 namespace {
 
-constexpr int kThreads = 128;  // 4 warps; thread t owns column t at the end
+constexpr int kThreads = 128;  // 4 warps
 constexpr int kWarps = kThreads / 32;
 constexpr int kPage = 64;      // cells per page: 16 per warp
-constexpr int kHeadDim = 128;  // the one head size built
-constexpr int kTile = kPage * kHeadDim;  // elements of one (page, head) tile
 constexpr int kMaxStages = 3;  // pages in flight per block
-static_assert(kThreads == kHeadDim, "thread t combines head column t");
+
+// Elements of one (page, KV head) tile at head size D.
+template <int D>
+__host__ __device__ constexpr int tile_elems() {
+  static_assert(D == 64 || D == 128, "head sizes 64 and 128 are built");
+  static_assert(kThreads % D == 0 && D % 32 == 0, "thread layout");
+  return kPage * D;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -117,25 +133,26 @@ __device__ __forceinline__ void load_vec(const T* p, float* f) {
 // the warps' partial O, then the combine's weights; after it the per-warp
 // probabilities, the warps' row maxima (two pages' worth), the warps'
 // row sums, the ring's barriers and the ticket flag.
-template <typename T, int R>
+template <typename T, int D, int R>
 __host__ __device__ constexpr size_t region_bytes(int stages, int n_split) {
-  const size_t ring = (size_t)stages * 2 * kTile * sizeof(T);
-  const size_t warps_o = (size_t)kWarps * R * kHeadDim * sizeof(float);
+  const size_t ring = (size_t)stages * 2 * tile_elems<D>() * sizeof(T);
+  const size_t warps_o = (size_t)kWarps * R * D * sizeof(float);
   const size_t weights = (size_t)n_split * R * sizeof(float);
   const size_t m = ring > warps_o ? ring : warps_o;
   return ((m > weights ? m : weights) + 127) / 128 * 128;
 }
 
-template <typename T, int R>
+template <typename T, int D, int R>
 __host__ __device__ constexpr size_t smem_bytes(int stages, int n_split) {
-  return region_bytes<T, R>(stages, n_split) +
+  return region_bytes<T, D, R>(stages, n_split) +
          sizeof(float) * (kWarps * R * 16 + 3 * kWarps * R) +
          sizeof(uint64_t) * kMaxStages + 16;
 }
 
 // R query rows per block (n_rep * K rows of one KV head, padded to R):
-// 4 at decode and 16 at verify for 32/8 heads.
-template <typename T, int R>
+// 4 at decode and 16 at verify for 32/8 and for 12/4 heads (3 and 12
+// live rows at 12/4). D is the head size.
+template <typename T, int D, int R>
 __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     const T* __restrict__ q,           // [B, K, H, Dh]
     const T* __restrict__ k_pool,      // [num_pages, Hkv, P, Dh]
@@ -148,9 +165,10 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     int* __restrict__ tickets,         // [B, groups], 0 between calls
     int kq, int n_heads, int n_kv, int max_pages, int pages_per_split,
     int stages, float scale) {
+  constexpr int kTile = tile_elems<D>();
   constexpr int L = 2 * R;             // lanes per key cell in q.k
   constexpr int G = 32 / L;            // cells per warp per iteration
-  constexpr int E = kHeadDim / L;      // head elements per lane in q.k
+  constexpr int E = D / L;             // head elements per lane in q.k
   constexpr int U = (int)(16 / sizeof(T)) < E ? (int)(16 / sizeof(T)) : E;
   constexpr int NL = E / U;            // vector loads per lane per cell
   constexpr int IB = R == 16 ? 2 : 4;  // iterations per reduce-scatter
@@ -158,6 +176,9 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   constexpr int NB = R / IB;           // reductions per page (R iterations)
   constexpr int RG = R / VPL;          // lanes holding distinct row groups
   constexpr int LOG2L = R == 4 ? 3 : (R == 8 ? 4 : 5);
+  constexpr int C = D / 32;            // head columns per lane in p.v
+  constexpr int CT = kThreads / D;     // threads per head column at the end
+  constexpr int RT = R / CT;           // rows per thread at the end
   static_assert(R == 4 || R == 8 || R == 16, "row block of 4, 8 or 16");
   static_assert((1 << LOG2L) == L && NB * IB == R && E % U == 0, "shape");
 
@@ -178,9 +199,9 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   const int n_live = lastp / pages_per_split + 1;
 
   extern __shared__ __align__(128) uint8_t smem[];
-  T* ring = reinterpret_cast<T*>(smem);  // [stages][K, V][kPage][kHeadDim]
+  T* ring = reinterpret_cast<T*>(smem);  // [stages][K, V][kPage][D]
   float* pw = reinterpret_cast<float*>(
-      smem + region_bytes<T, R>(stages, n_split));  // [kWarps][R][16]
+      smem + region_bytes<T, D, R>(stages, n_split));  // [kWarps][R][16]
   float* wmax = pw + kWarps * R * 16;               // [2][kWarps][R]
   float* lsum = wmax + 2 * kWarps * R;              // [kWarps][R]
   uint64_t* bars = reinterpret_cast<uint64_t*>(lsum + kWarps * R);
@@ -215,7 +236,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   for (int r = 0; r < R; ++r) {
     const int row = r_base + r;
     const T* qp = q + ((size_t)(b * kq + row % kq) * n_heads + g * n_rep +
-                       row / kq) * kHeadDim;
+                       row / kq) * D;
 #pragma unroll
     for (int u = 0; u < NL; ++u)
 #pragma unroll
@@ -232,14 +253,14 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   for (int v = 0; v < VPL; ++v) qpos[v] = pos + (r_base + r0 + v) % kq;
 
   float m_run[R];      // running max of every row (same in every lane)
-  float acc[R][4];     // this warp's p.v, columns 4 * lane .. + 3
+  float acc[R][C];     // this warp's p.v, columns C * lane .. + C - 1
   float m_own[VPL];    // running max of this lane's score rows
   float l_own[VPL];    // this lane's share of their row sums
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     m_run[r] = kMInit;
 #pragma unroll
-    for (int d = 0; d < 4; ++d) acc[r][d] = 0.f;
+    for (int d = 0; d < C; ++d) acc[r][d] = 0.f;
   }
 #pragma unroll
   for (int v = 0; v < VPL; ++v) {
@@ -251,8 +272,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
 
   for (int t = 0; t < n_pages; ++t) {
     mbar_wait(&bars[t % stages], (t / stages) & 1);
-    const T* kt = ring + (size_t)(t % stages) * 2 * kTile + warp * 16 *
-                                                             kHeadDim;
+    const T* kt = ring + (size_t)(t % stages) * 2 * kTile + warp * 16 * D;
     const T* vt = kt + kTile;
     const int key0 = (first + t) * kPage + warp * 16;
 
@@ -264,7 +284,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
       float a[IB * R];
 #pragma unroll
       for (int i = 0; i < IB; ++i) {
-        const T* krow = kt + ((bi * IB + i) * G + cg) * kHeadDim;
+        const T* krow = kt + ((bi * IB + i) * G + cg) * D;
         float kv[E];
 #pragma unroll
         for (int u = 0; u < NL; ++u)
@@ -339,19 +359,19 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
       const float alpha = expf(m_run[r] - mn);
       m_run[r] = mn;
 #pragma unroll
-      for (int d = 0; d < 4; ++d) acc[r][d] *= alpha;
+      for (int d = 0; d < C; ++d) acc[r][d] *= alpha;
     }
     __syncwarp();  // the warp's p visible to all its lanes
 
 #pragma unroll 4
     for (int c = 0; c < 16; ++c) {
-      float vv[4];
-      load_vec<T, 4>(vt + c * kHeadDim + 4 * lane, vv);
+      float vv[C];
+      load_vec<T, C>(vt + c * D + C * lane, vv);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const float p = pwarp[r * 16 + c];
 #pragma unroll
-        for (int d = 0; d < 4; ++d) acc[r][d] = fmaf(p, vv[d], acc[r][d]);
+        for (int d = 0; d < C; ++d) acc[r][d] = fmaf(p, vv[d], acc[r][d]);
       }
     }
   }
@@ -365,36 +385,48 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     if (lane < RG) lsum[warp * R + r0 + v] = l_own[v];
   }
   __syncthreads();  // the ring is free: every issued page was consumed
-  float* warp_o = reinterpret_cast<float*>(smem);  // [kWarps][R][kHeadDim]
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-    *reinterpret_cast<float4*>(warp_o + (warp * R + r) * kHeadDim +
-                               4 * lane) =
-        make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-  __syncthreads();
-  const int d = tid;
-  float o_sum[R], l_sum[R];
+  float* warp_o = reinterpret_cast<float*>(smem);  // [kWarps][R][D]
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    o_sum[r] = 0.f;
-    l_sum[r] = 0.f;
+    Vec<float, C> o;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      o_sum[r] += warp_o[(w * R + r) * kHeadDim + d];
-      l_sum[r] += lsum[w * R + r];
-    }
+    for (int d = 0; d < C; ++d) o.v[d] = acc[r][d];
+    *reinterpret_cast<Vec<float, C>*>(warp_o + (warp * R + r) * D +
+                                      C * lane) = o;
+  }
+  __syncthreads();
+  // This thread finishes column d of rows rh, rh + CT, ... (row i * CT +
+  // rh is its i-th).
+  const int d = tid % D;
+  const int rh = tid / D;
+  auto l_row = [&](int r) {  // row r's sum over the warps
+    float l = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) l += lsum[w * R + r];
+    return l;
+  };
+  float o_sum[RT];
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    const int r = i * CT + rh;
+    o_sum[i] = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) o_sum[i] += warp_o[(w * R + r) * D + d];
   }
   auto out_at = [&](int r) {
     const int row = r_base + r;
     return out + ((size_t)(b * kq + row % kq) * n_heads + g * n_rep +
-                  row / kq) * kHeadDim + d;
+                  row / kq) * D + d;
   };
   if (n_live == 1) {
 #pragma unroll
-    for (int r = 0; r < R; ++r)
-      if (r < r_live)
-        *out_at(r) =
-            from_float<T>(o_sum[r] / (l_sum[r] == 0.f ? 1.f : l_sum[r]));
+    for (int i = 0; i < RT; ++i) {
+      const int r = i * CT + rh;
+      if (r < r_live) {
+        const float l = l_row(r);
+        *out_at(r) = from_float<T>(o_sum[i] / (l == 0.f ? 1.f : l));
+      }
+    }
     return;
   }
 
@@ -402,11 +434,13 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   const size_t wi = (size_t)b * gridDim.x + gx;
   const size_t part = (wi * n_split + split) * R;
 #pragma unroll
+  for (int i = 0; i < RT; ++i)
+    ws_acc[(part + i * CT + rh) * D + d] = o_sum[i];
+#pragma unroll
   for (int r = 0; r < R; ++r) {
-    ws_acc[(part + r) * kHeadDim + d] = o_sum[r];
     if (tid == r) {
       ws_ml[(part + r) * 2] = m_run[r];
-      ws_ml[(part + r) * 2 + 1] = l_sum[r];
+      ws_ml[(part + r) * 2 + 1] = l_row(r);
     }
   }
   __threadfence();
@@ -433,26 +467,30 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     if (lane == 0) lsum[r] = den;
   }
   __syncthreads();
-  // All R rows of a split at once: R independent loads in flight (the
+  // All RT rows of a split at once: RT independent loads in flight (the
   // weights of padded rows are never set, and those rows never written).
-  const float* parts = ws_acc + wi * n_split * R * kHeadDim + d;
+  const float* parts = ws_acc + wi * n_split * R * D + d;
 #pragma unroll
-  for (int r = 0; r < R; ++r) o_sum[r] = 0.f;
+  for (int i = 0; i < RT; ++i) o_sum[i] = 0.f;
 #pragma unroll 2
   for (int s = 0; s < n_live; ++s)
 #pragma unroll
-    for (int r = 0; r < R; ++r)
-      o_sum[r] = fmaf(weights[s * R + r],
-                      __ldcg(parts + (s * R + r) * kHeadDim), o_sum[r]);
+    for (int i = 0; i < RT; ++i) {
+      const int r = i * CT + rh;
+      o_sum[i] = fmaf(weights[s * R + r], __ldcg(parts + (s * R + r) * D),
+                      o_sum[i]);
+    }
 #pragma unroll
-  for (int r = 0; r < R; ++r)
+  for (int i = 0; i < RT; ++i) {
+    const int r = i * CT + rh;
     if (r < r_live)
-      *out_at(r) = from_float<T>(o_sum[r] /
+      *out_at(r) = from_float<T>(o_sum[i] /
                                  (lsum[r] == 0.f ? 1.f : lsum[r]));
+  }
   if (tid == 0) tickets[wi] = 0;  // ready for the next call
 }
 
-template <typename T, int R>
+template <typename T, int D, int R>
 cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
                    const void* tables, const void* positions, void* out,
                    void* ws_acc, void* ws_ml, void* tickets, int batch,
@@ -464,8 +502,8 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
   // the refill of page t - 1's stage never waits on page t itself.
   const int stages = pages_per_split < kMaxStages ? pages_per_split
                                                   : kMaxStages;
-  const size_t smem = smem_bytes<T, R>(stages, n_split);
-  auto kernel = paged_attention_kernel<T, R>;
+  const size_t smem = smem_bytes<T, D, R>(stages, n_split);
+  auto kernel = paged_attention_kernel<T, D, R>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -480,26 +518,41 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(int row_block, const void* q, const void* k_pool,
-                     const void* v_pool, const void* tables,
-                     const void* positions, void* out, void* ws_acc,
-                     void* ws_ml, void* tickets, int batch, int kq,
-                     int n_heads, int n_kv, int max_pages,
-                     int pages_per_split, float scale, cudaStream_t s) {
+struct Args {
+  const void *q, *k_pool, *v_pool, *tables, *positions;
+  void *out, *ws_acc, *ws_ml, *tickets;
+  int batch, kq, n_heads, n_kv, max_pages, pages_per_split;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename T, int D>
+cudaError_t dispatch(int row_block, const Args& a) {
+  auto go = [&](auto kernel_launch) {
+    return kernel_launch(a.q, a.k_pool, a.v_pool, a.tables, a.positions,
+                         a.out, a.ws_acc, a.ws_ml, a.tickets, a.batch, a.kq,
+                         a.n_heads, a.n_kv, a.max_pages, a.pages_per_split,
+                         a.scale, a.stream);
+  };
   switch (row_block) {
     case 4:
-      return launch<T, 4>(q, k_pool, v_pool, tables, positions, out, ws_acc,
-                          ws_ml, tickets, batch, kq, n_heads, n_kv,
-                          max_pages, pages_per_split, scale, s);
+      return go(launch<T, D, 4>);
     case 8:
-      return launch<T, 8>(q, k_pool, v_pool, tables, positions, out, ws_acc,
-                          ws_ml, tickets, batch, kq, n_heads, n_kv,
-                          max_pages, pages_per_split, scale, s);
+      return go(launch<T, D, 8>);
     case 16:
-      return launch<T, 16>(q, k_pool, v_pool, tables, positions, out,
-                           ws_acc, ws_ml, tickets, batch, kq, n_heads, n_kv,
-                           max_pages, pages_per_split, scale, s);
+      return go(launch<T, D, 16>);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t dispatch_head_dim(int head_dim, int row_block, const Args& a) {
+  switch (head_dim) {
+    case 64:
+      return dispatch<T, 64>(row_block, a);
+    case 128:
+      return dispatch<T, 128>(row_block, a);
     default:
       return cudaErrorInvalidValue;
   }
@@ -512,25 +565,22 @@ cudaError_t dispatch(int row_block, const void* q, const void* k_pool,
 // row_block and pages_per_split come from the wrapper
 // (ray_tpu_torch/ops/paged_attention.py), which sizes the workspace
 // (ws_acc, ws_ml: fp32; tickets: int32 zeros) from the same numbers.
+// head_dim must be 64 or 128 and page_size 64.
 extern "C" int rtt_paged_attention(
     int dtype, const void* q, const void* k_pool, const void* v_pool,
     const void* tables, const void* positions, void* out, void* ws_acc,
     void* ws_ml, void* tickets, int batch, int kq, int n_heads, int n_kv,
     int head_dim, int page_size, int max_pages, int row_block,
     int pages_per_split, float scale, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  if (head_dim != rtt::kHeadDim || page_size != rtt::kPage ||
-      pages_per_split < 1)
+  if (page_size != rtt::kPage || pages_per_split < 1)
     return cudaErrorInvalidValue;
+  const rtt::Args a{q, k_pool, v_pool, tables, positions, out, ws_acc,
+                    ws_ml, tickets, batch, kq, n_heads, n_kv, max_pages,
+                    pages_per_split, scale,
+                    static_cast<cudaStream_t>(stream)};
   if (dtype == rtt::kFloat32)
-    return rtt::dispatch<float>(row_block, q, k_pool, v_pool, tables,
-                                positions, out, ws_acc, ws_ml, tickets, batch,
-                                kq, n_heads, n_kv, max_pages, pages_per_split,
-                                scale, s);
+    return rtt::dispatch_head_dim<float>(head_dim, row_block, a);
   if (dtype == rtt::kBFloat16)
-    return rtt::dispatch<__nv_bfloat16>(
-        row_block, q, k_pool, v_pool, tables, positions, out, ws_acc, ws_ml,
-        tickets, batch, kq, n_heads, n_kv, max_pages, pages_per_split, scale,
-        s);
+    return rtt::dispatch_head_dim<__nv_bfloat16>(head_dim, row_block, a);
   return cudaErrorInvalidValue;
 }

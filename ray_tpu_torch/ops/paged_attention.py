@@ -10,7 +10,15 @@ probabilities are cast to v's dtype before the value product; the output
 is in q's dtype. The kernel is ``csrc/paged_attention.cu``: each slot's
 page walk is split across blocks of ``pages_per_split`` pages, and the
 splits are combined in the same launch (:func:`paged_attention_split_reference`
-is its arithmetic in PyTorch).
+is its arithmetic in PyTorch). It is built for head sizes 64 and 128 and
+64-token pages.
+
+What bounds it on the H100 is bytes: every live K/V page is read once and
+takes 2 * n_rep * K flops per element. At ``mini``'s decode (12/4 heads of
+64, K = 1: 3 query rows per KV head) that is 3 flops per byte in bf16, at
+llama3_8b's (32/8 heads of 128) 4, against ~295 where the tensor cores
+would become the limit; so a step's bound is its live pages' bytes over
+the HBM rate (``chip_smoke.py`` prints it beside the kernel's time).
 """
 
 from __future__ import annotations
@@ -24,7 +32,7 @@ from ray_tpu_torch import _build
 
 _MASK = -1e9
 _M_INIT = -1e30
-KERNEL_HEAD_DIM = 128  # the one head size csrc/paged_attention.cu builds
+KERNEL_HEAD_DIMS = (64, 128)  # the head sizes csrc/paged_attention.cu builds
 KERNEL_PAGE_SIZE = 64  # the one page size it builds (16 cells per warp)
 # Blocks to aim for if every slot's table were full. Slots fill a part of
 # their table (the table is sized for max_seq), so this asks for ~2 live
@@ -228,10 +236,10 @@ def paged_attention(
             f"paged_attention: shapes q {tuple(q.shape)}, pools "
             f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)} do not match"
         )
-    if dh != KERNEL_HEAD_DIM or page_size != KERNEL_PAGE_SIZE:
+    if dh not in KERNEL_HEAD_DIMS or page_size != KERNEL_PAGE_SIZE:
         raise ValueError(
-            f"paged_attention: the kernel is built for head_dim "
-            f"{KERNEL_HEAD_DIM} and {KERNEL_PAGE_SIZE}-token pages, got "
+            f"paged_attention: the kernel is built for head_dim in "
+            f"{KERNEL_HEAD_DIMS} and {KERNEL_PAGE_SIZE}-token pages, got "
             f"{dh} and {page_size}"
         )
     if (block_tables.dtype != torch.int32 or positions.dtype != torch.int32

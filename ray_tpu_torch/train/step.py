@@ -25,7 +25,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ray_tpu_torch import mesh_size
+from ray_tpu_torch import mesh_size, resolve_device
 from ray_tpu_torch.models.llama import (
     LlamaConfig,
     forward_with_aux,
@@ -160,6 +160,88 @@ class AdamW:
             p.add_((u + p * self.weight_decay) * neg_lr)
             mu.copy_(mu32)
         return AdamWState(count, state.mu, state.nu)
+
+
+def _from_numpy(x, device: torch.device) -> torch.Tensor:
+    """A copy of a numpy array as a tensor of the same dtype on
+    ``device`` (never a view: the port updates its state in place, and
+    the array may be a JAX buffer); a bf16 array (ml_dtypes, as JAX hands
+    it over) is carried bit for bit."""
+    a = np.array(x, copy=True, order="C")
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(
+            device)
+    return torch.from_numpy(a).to(device)
+
+
+def _adam_state(opt_state):
+    """optax's ScaleByAdamState (``count``, ``mu``, ``nu``) inside the
+    reference's clip-then-adamw chain state, found by its fields."""
+    if all(hasattr(opt_state, f) for f in ("count", "mu", "nu")):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for sub in opt_state:
+            found = _adam_state(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def train_state_from_jax(state, device: str | torch.device = "cuda"
+                         ) -> TrainState:
+    """The reference's train state, passed as numpy (``jax.tree.map(
+    np.asarray, state)``: ``step``, the parameter tree and optax's
+    ``(clip, (adam, ..., schedule))`` state), as the port's
+    :class:`TrainState` on ``device``. Every leaf keeps its dtype: fp32
+    parameters (requiring grad), mu in its ``mu_dtype`` (bf16 under
+    ``mu_dtype=bfloat16``), fp32 nu. The dense and the MoE trees both
+    carry over, leaf for leaf; the step and adam's count become ints."""
+    dev = resolve_device(device)
+    adam = _adam_state(state.opt_state)
+    if adam is None:
+        raise ValueError("train_state_from_jax: no adamw state (count, mu, "
+                         "nu) in opt_state")
+
+    def tree(t, grad=False):
+        return _unflatten((path, _from_numpy(leaf, dev).requires_grad_(grad))
+                          for path, leaf in _flatten(t))
+
+    params = tree(state.params, grad=True)
+    return TrainState(int(state.step), params,
+                      AdamWState(int(adam.count), tree(adam.mu),
+                                 tree(adam.nu)))
+
+
+def train_state_dict(state: TrainState) -> dict[str, torch.Tensor]:
+    """``state`` as named tensors, for a checkpoint: "params/<path>",
+    "mu/<path>" and "nu/<path>" (paths joined by "/", in the reference's
+    leaf order), and "step" and "count" as 0-d int64 tensors. The
+    tensors are the state's own, detached (no copy)."""
+    out = {"step": torch.tensor(state.step, dtype=torch.int64),
+           "count": torch.tensor(state.opt_state.count, dtype=torch.int64)}
+    for name, tree in (("params", state.params), ("mu", state.opt_state.mu),
+                       ("nu", state.opt_state.nu)):
+        for path, t in _flatten(tree):
+            out["/".join((name, *path))] = t.detach()
+    return out
+
+
+def train_state_from_dict(flat: dict[str, torch.Tensor]) -> TrainState:
+    """The inverse of :func:`train_state_dict`, on the tensors' own
+    devices: parameters require grad, as :func:`init_train_state`'s."""
+    trees: dict[str, list] = {"params": [], "mu": [], "nu": []}
+    for key, t in flat.items():
+        if key in ("step", "count"):
+            continue
+        name, *path = key.split("/")
+        if name not in trees:
+            raise KeyError(f"train_state_from_dict: unknown entry {key!r}")
+        trees[name].append((tuple(path), t))
+    params = _unflatten((path, t.requires_grad_(True))
+                        for path, t in trees["params"])
+    return TrainState(int(flat["step"]), params,
+                      AdamWState(int(flat["count"]), _unflatten(trees["mu"]),
+                                 _unflatten(trees["nu"])))
 
 
 def make_optimizer(

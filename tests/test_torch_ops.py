@@ -105,6 +105,9 @@ def test_port_imports_neither_jax_nor_ray_tpu():
     files += [REPO / "chip_smoke.py", REPO / "paged_attention_chip.py"]
     assert len(files) > 10
     assert REPO / "ray_tpu_torch" / "models" / "moe.py" in files
+    for name in ("checkpoint.py", "dataloader.py", "memory.py"):
+        assert REPO / "ray_tpu_torch" / "train" / name in files
+    assert REPO / "ray_tpu_torch" / "_native" / "dataloader.py" in files
     bad = []
     for path in files:
         for mod in _imports(path):
