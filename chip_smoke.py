@@ -77,6 +77,21 @@ Phase 7  the training loop on the bench preset at full width and depth:
          train/memory.py's plan beside each peak it prices (phase 4's
          remat full, dots and none, phase 6's recipe): within 15%, and
          fitting the card, since each ran.
+Phase 8  the sharded path. (a) F1/F2 at a tp rank's local shapes (the
+         bench preset at tp=2: 4/2 heads, B=16 S=2048; llama3_8b at tp=8:
+         4/1, B=2 S=4096; moe_bench at tp=2: 8/4 of 64) and P1 at
+         llama3_8b tp=2 (16/4) and tp=8 (4/1) and mini tp=4 (3/1 of 64),
+         held to their plain versions in fp32 on the same bf16 inputs
+         (FLASH_ORACLE_TOL, PAGED_ORACLE_TOL) and timed.
+         (b) two ranks spawned on the one card over gloo (correctness
+         only: gloo copies every collective through host memory):
+         llama3_8b at full width and depth served with mesh {"tp": 2}
+         (each rank's pool holds 4 of the 8 KV heads; streams held by
+         stream_check), then the bench preset's first two steps under
+         {"fsdp": 2} and {"tp": 2} with no learning-rate warm-up, held to
+         the same steps in one process (losses within TWO_RANK_LOSS_REL,
+         gradient norms within TWO_RANK_NORM_REL), with each rank's flash launches and peak
+         memory beside plan_memory.
 Timing   each kernel at the main path's shapes (CUDA events, cold L2):
          its time, its plain version's, its bound (P1 also at the verify
          step's K = 4 and at batch 64, on lines of their own), and for the flash
@@ -88,7 +103,10 @@ Prints a ``{"kernels": [...]}`` line (the paged kernel twice,
 "paged_attention_d64" at mini's; the flash forward three times:
 "flash_fwd" at the prefill's shape, "flash_fwd_train" at the bench
 training step's, "flash_fwd_train_d64" at moe_bench's; the backward twice,
-"flash_bwd" and "flash_bwd_d64"; each with its own launches and error),
+"flash_bwd" and "flash_bwd_d64"; and the tp=2 shapes phase 8b runs,
+"paged_attention_tp2", "flash_fwd_train_tp2" and "flash_bwd_tp2", with
+both ranks' launches; each with its own launches and error; the other
+phase 8a shapes on a line of their own),
 the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero;
 without a CUDA device it exits 1 before any phase.
@@ -106,6 +124,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -135,6 +154,25 @@ FLASH_BF16_NORM = 5e-3  # limit of ||got - want|| / ||want||
 # two orders of magnitude (paged_attention_chip.py mutants).
 PAGED_BF16_TOL = (2e-4, 1e-2)  # atol, rtol per element
 PAGED_BF16_NORM = 1e-3  # limit of ||got - want|| / ||want||
+# Phase 8a holds the bf16 kernels at a tp rank's head layouts to their
+# plain versions in fp32 on the same bf16 inputs (the exact function of
+# what each kernel is given), not to the plain bf16 versions: at
+# llama3_8b's tp=8 layout (4/1 heads) the kernel and the plain bf16
+# version differed beyond the limits above at one element each (F2's dk at
+# B=2 S=4096, P1 at B=64 K=4). Both round O, dq, dk, dv and P1's output to
+# bf16, and p and ds before their products, so each sits a few bf16 steps
+# per element from the fp32 result, the plain bf16 versions as far as the
+# kernels. Sound kernels over phase 8a's layouts read at most 1.14e-2 beyond
+# 1e-2 |want| and 3.4e-3 norm-relative (F2; F1 4.3e-3 and 2.8e-3), P1
+# 2.2e-3 and 2.2e-3; the limits sit 1.75-1.85 times above them. Each
+# planted fault (a key tile, the rescale, delta, a dq tile, a dk step, the
+# causal mask one key late; a split, a page, P1's rescale) reads at least
+# 0.48 beyond and 0.29 norm-relative at every layout (sharded_chip.py
+# kernel-faults; PERF.md PR 7).
+FLASH_ORACLE_TOL = (2e-2, 1e-2)  # atol, rtol per element
+FLASH_ORACLE_NORM = 6e-3  # limit of ||got - want|| / ||want||
+PAGED_ORACLE_TOL = (4e-3, 1e-2)  # atol, rtol per element
+PAGED_ORACLE_NORM = 4e-3  # limit of ||got - want|| / ||want||
 
 
 class SmokeFailure(RuntimeError):
@@ -211,6 +249,15 @@ def compare(name, got, want, atol, rtol, norm=None):
     return max_err
 
 
+def distance(got, want, rtol):
+    """The readings compare holds, as text, for a line that holds nothing:
+    the largest |got - want| - rtol * |want| and the norm-relative error."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    return (f"beyond rtol {float((err - rtol * want.abs()).max()):.3e} "
+            f"(rtol={rtol}), norm-rel {float(err.norm() / want.norm()):.3e}")
+
+
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of one call, with L2 flushed before each call
     (the main path reaches each kernel after other layers' weights have
@@ -275,7 +322,7 @@ def paged_case(b, kq, lengths, max_pages, dtype, seed, page_size=64,
             positions.to(**to))
 
 
-def paged_checks(device="cuda", heads=(32, 8, 128)):
+def paged_checks(device="cuda", heads=(32, 8, 128), oracle=False):
     """P1 against its plain versions in every case, bf16 and fp32, at one
     head layout ``heads`` = (query heads, KV heads, head_dim): llama3_8b's
     by default, mini's (12, 4, 64) for the head_dim-64 build, where 3 query
@@ -287,7 +334,11 @@ def paged_checks(device="cuda", heads=(32, 8, 128)):
     the one-block plain version at atol = rtol = 2e-2 (p rounded against
     the row's max there, against each page's running max in the kernel);
     fp32 to both at 1e-4 (the same arithmetic in another summation
-    order). Returns the worst bf16 error against the split version."""
+    order). With ``oracle`` (phase 8a) bf16 is held instead to the plain
+    version in fp32 on the same bf16 inputs (``PAGED_ORACLE_TOL``,
+    ``PAGED_ORACLE_NORM``), and the split plain version's own distance
+    from it is printed beside. Returns the worst bf16 error against the
+    yardstick."""
     from ray_tpu_torch.ops.paged_attention import (
         kernel_split,
         paged_attention,
@@ -334,21 +385,32 @@ def paged_checks(device="cuda", heads=(32, 8, 128)):
             sync()
             name = f"paged H={h}/{hkv} D={dh} {label} {str(dtype)[6:]}"
             if dtype == torch.bfloat16:
-                atol, rtol = PAGED_BF16_TOL
-                e = compare(f"{name} vs split ({pps} pages/split)", got,
-                            split, atol, rtol, PAGED_BF16_NORM)
-                compare(f"{name} vs one block", got, single, 2e-2, 2e-2)
-                err = (got.float() - split.float()).abs()
+                if oracle:
+                    atol, rtol = PAGED_ORACLE_TOL
+                    want = paged_attention_reference(
+                        *(t.float() for t in args[:3]), *args[3:])
+                    e = compare(f"{name} vs fp32", got, want, atol, rtol,
+                                PAGED_ORACLE_NORM)
+                    print(f"    plain bf16 (split) vs fp32: "
+                          f"{distance(split, want, rtol)}")
+                else:
+                    atol, rtol = PAGED_BF16_TOL
+                    want = split
+                    e = compare(f"{name} vs split ({pps} pages/split)", got,
+                                split, atol, rtol, PAGED_BF16_NORM)
+                    compare(f"{name} vs one block", got, single, 2e-2, 2e-2)
+                err = (got.float() - want.float()).abs()
                 worst["err"] = max(worst["err"], e)
                 worst["excess"] = max(worst["excess"], float(
-                    (err - rtol * split.float().abs()).max()))
+                    (err - rtol * want.float().abs()).max()))
                 worst["norm"] = max(worst["norm"], float(
-                    err.norm() / split.float().norm()))
+                    err.norm() / want.float().norm()))
             else:
                 compare(f"{name} vs split ({pps} pages/split)", got, split,
                         1e-4, 1e-4)
                 compare(f"{name} vs one block", got, single, 1e-4, 1e-4)
-    print(f"  paged H={h}/{hkv} D={dh} bf16 vs split, worst: max_abs_err "
+    print(f"  paged H={h}/{hkv} D={dh} bf16 vs "
+          f"{'fp32' if oracle else 'split'}, worst: max_abs_err "
           f"{worst['err']:.3e}, beyond rtol {worst['excess']:.3e}, norm-rel "
           f"{worst['norm']:.3e}")
     return worst["err"]
@@ -463,13 +525,17 @@ FLASH_SHAPES = ((16, 2048), (2, 1000), (2, 512), (2, 200), (2, 64))
 def flash_bwd_checks(tol, device="cuda", heads=BENCH_HEADS,
                      shapes=FLASH_SHAPES, dtypes=(torch.bfloat16,
                                                   torch.float32),
-                     train=(16, 2048), tag=""):
+                     train=(16, 2048), tag="", oracle=False):
     """At one head layout (by default the bench preset's 8 query, 4 KV
     heads of 128): the forward kernel's O and LSE against its plain
     version, then dq, dk, dv of the backward kernel against its plain
     version on those same O and LSE, at the flash tolerances of phase 1
     (bf16: ``FLASH_BF16_TOL`` per element and ``FLASH_BF16_NORM``; fp32:
-    1e-4, the same arithmetic in another summation order).
+    1e-4, the same arithmetic in another summation order). With
+    ``oracle`` (phase 8a) the bf16 O, dq, dk and dv are held instead to
+    the plain versions in fp32 on the same bf16 inputs
+    (``FLASH_ORACLE_TOL``, ``FLASH_ORACLE_NORM``), and the plain bf16
+    versions' own distance from them is printed beside.
 
     The bf16 backward sums dq with fp32 atomics in no fixed order: it
     runs a second time on the same inputs, and the largest |ddq| between
@@ -491,8 +557,11 @@ def flash_bwd_checks(tol, device="cuda", heads=BENCH_HEADS,
     worst = {f"flash_train{tag}": 0.0, f"flash{tag}": 0.0,
              f"flash_bwd{tag}": 0.0, "dq_spread": 0.0}
     for dtype in dtypes:
+        bf16 = dtype == torch.bfloat16
         atol, rtol = tol[dtype]
-        norm = FLASH_BF16_NORM if dtype == torch.bfloat16 else None
+        norm = FLASH_BF16_NORM if bf16 else None
+        if bf16 and oracle:
+            (atol, rtol), norm = FLASH_ORACLE_TOL, FLASH_ORACLE_NORM
         for b, s in shapes:
             q, k, v, do = flash_inputs(b, s, dtype, seed=s, h=h, hkv=hkv,
                                        d=d, device=device)
@@ -502,9 +571,19 @@ def flash_bwd_checks(tol, device="cuda", heads=BENCH_HEADS,
                          f"{str(dtype)[6:]}")
                 o, lse = flash_attention_forward(q, k, v, causal)
                 o_ref, lse_ref = flash_attention_reference(q, k, v, causal)
+                if bf16 and oracle:
+                    f32 = [t.float() for t in (q, k, v, do)]
+                    o_32, lse_32 = flash_attention_reference(*f32[:3],
+                                                             causal)
                 sync()
-                e_fwd = compare(f"flash {label} O", o, o_ref, atol, rtol,
-                                norm)
+                if bf16 and oracle:
+                    e_fwd = compare(f"flash {label} O vs fp32", o, o_32,
+                                    atol, rtol, norm)
+                    print(f"    plain bf16 O vs fp32: "
+                          f"{distance(o_ref, o_32, rtol)}")
+                else:
+                    e_fwd = compare(f"flash {label} O", o, o_ref, atol, rtol,
+                                    norm)
                 compare(f"flash {label} LSE", lse, lse_ref, 1e-4, 1e-4)
                 del o_ref, lse_ref
                 got = flash_attention_backward(q, k, v, o, lse, do, causal)
@@ -512,12 +591,26 @@ def flash_bwd_checks(tol, device="cuda", heads=BENCH_HEADS,
                     q, k, v, o, lse, do, causal
                 )
                 sync()
-                e_bwd = max(
-                    compare(f"flash bwd {label} {name}", a, w, atol, rtol,
-                            norm)
-                    for name, a, w in zip(("dq", "dk", "dv"), got, want)
-                )
-                if dtype == torch.bfloat16:
+                if bf16 and oracle:
+                    exact = flash_attention_backward_reference(
+                        *f32[:3], o_32, lse_32, f32[3], causal)
+                    del f32, o_32, lse_32
+                    e_bwd = 0.0
+                    for name, a, w, x in zip(("dq", "dk", "dv"), got, want,
+                                             exact):
+                        e_bwd = max(e_bwd, compare(
+                            f"flash bwd {label} {name} vs fp32", a, x, atol,
+                            rtol, norm))
+                        print(f"    plain bf16 {name} vs fp32: "
+                              f"{distance(w, x, rtol)}")
+                    del exact
+                else:
+                    e_bwd = max(
+                        compare(f"flash bwd {label} {name}", a, w, atol,
+                                rtol, norm)
+                        for name, a, w in zip(("dq", "dk", "dv"), got, want)
+                    )
+                if bf16:
                     worst[fwd_key] = max(worst[fwd_key], e_fwd)
                     worst["flash_bwd" + tag] = max(worst["flash_bwd" + tag],
                                                    e_bwd)
@@ -596,9 +689,17 @@ def logits_tolerance(name, got, want):
     check(bool(same[clear].all()), f"{name}: argmax differs on a clear row")
 
 
+SERVE_LENGTHS = (20, 63, 64, 65, 200, 511, 900, 1500)
+
+
+def serving_prompts(cfg, rng, lengths=SERVE_LENGTHS):
+    """Phase 2's prompts: one of each length, token ids drawn from
+    ``rng``."""
+    return [rng.integers(0, cfg.vocab_size, n).tolist() for n in lengths]
+
+
 def phase2(cfg, params, seed, device="cuda", max_seq=2048, page_size=64,
-           lengths=(20, 63, 64, 65, 200, 511, 900, 1500), max_tokens=32,
-           name="llama3_8b"):
+           lengths=SERVE_LENGTHS, max_tokens=32, name="llama3_8b"):
     """Paged serving of ``cfg``: plain greedy, then speculative; every
     emitted token of both is held to the plain path's greedy choice
     (:func:`stream_check`)."""
@@ -607,7 +708,7 @@ def phase2(cfg, params, seed, device="cuda", max_seq=2048, page_size=64,
 
     print(f"phase 2: paged engine, {name}")
     rng = np.random.default_rng(seed)
-    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lengths]
+    prompts = serving_prompts(cfg, rng, lengths)
     sp = SamplingParams(max_tokens=max_tokens)
     eng = LLMEngine(cfg, max_batch=8, max_seq=max_seq, params=params,
                     kv="paged", page_size=page_size, seed=seed,
@@ -685,6 +786,7 @@ def phase2(cfg, params, seed, device="cuda", max_seq=2048, page_size=64,
           f"acceptance {st_spec.get('draft_acceptance_rate', 0.0)}")
     return {
         "launches": p_launch + p_spec,
+        "outs": outs,
         "decode_tokens_per_s": decode_tps,
         "ttft_s_mean": float(np.mean(ttft)),
         "ttft_s_max": float(np.max(ttft)),
@@ -1458,6 +1560,300 @@ def planner_checks(p4, p6, p7, batch=16, seq=2048):
           f"{memory.ALLOCATOR_RESERVE_BYTES / 2**30:.3f} GiB")
     return out
 
+# ------------------------------------------------------------ phase 8
+# The local head layouts (query heads, KV heads, head_dim) a tp rank hands
+# the kernels, with the (B, S) of the flash calls: the bench preset at
+# tp = 2 (phase 4's batch), llama3_8b at tp = 8 (the bench_8b.py recipe's
+# B=2 S=4096), moe_bench at tp = 2; P1 at llama3_8b tp = 2 and 8 and mini
+# tp = 4 (phase 2's first decode step). Only the first flash layout and
+# the first paged one run on phase 8b's main path (two ranks on one card).
+TP_FLASH = (("bench tp=2", (4, 2, 128), (16, 2048), "_tp2"),
+            ("llama3_8b tp=8", (4, 1, 128), (2, 4096), "_8b_tp8"),
+            ("moe_bench tp=2", (8, 4, 64), (16, 2048), "_d64_tp2"))
+TP_PAGED = (("llama3_8b tp=2", (16, 4, 128), "_tp2"),
+            ("llama3_8b tp=8", (4, 1, 128), "_tp8"),
+            ("mini tp=4", (3, 1, 64), "_mini_tp4"))
+# Two ranks on one card over gloo: the losses and gradient norms of the
+# sharded bench steps against the same steps in one process on the same
+# weights and batch, both with no learning-rate warm-up, so that step 1's
+# loss is taken after a full-rate AdamW update of the sharded state. They
+# differ by bf16 rounding only: fsdp's ranks run products of half the rows
+# (other cuBLAS tiles), tp's ranks sum bf16 partial products over the
+# ranks where one product summed them in fp32. Sound runs read at most
+# 1.8e-5 (loss) and 7.2e-4 (gradient norm), both at tp's step 1; a planted
+# fault at least 3.8e-4 (loss: fsdp's gradient reduce-scatter left out, at
+# step 1 only) and 0.26 or NaN (gradient norm; the tp sum of activations
+# or of gradients left out) (sharded_chip.py train-faults; PERF.md PR 7).
+TWO_RANK_LOSS_REL = 1e-4
+TWO_RANK_NORM_REL = 2e-3
+# The rows of phase 8a whose shapes phase 8b's main path runs (and whose
+# launches it counts): the kernels line carries them.
+TP_MAIN_ROWS = ("paged_attention_tp2", "flash_fwd_train_tp2",
+                "flash_bwd_tp2")
+
+
+def heads_cfg(heads, dtype=torch.bfloat16):
+    """What the timing functions read of a config, at one head layout."""
+    h, hkv, dh = heads
+    return types.SimpleNamespace(n_heads=h, n_kv_heads=hkv, head_dim=dh,
+                                 dtype=dtype)
+
+
+def phase8a(positions):
+    """F1/F2 and P1 at the local shapes of a tp rank, against their plain
+    versions in fp32 on the same bf16 inputs (bf16, the main paths' type;
+    ``FLASH_ORACLE_TOL``, ``PAGED_ORACLE_TOL``), then timed like the
+    full-width rows."""
+    print("phase 8a: the kernels at a tp rank's local shapes")
+    rows = {}
+    for label, heads, (b, s), tag in TP_FLASH:
+        print(f"  {label}: heads {heads[0]}/{heads[1]} of {heads[2]}, "
+              f"B={b} S={s}")
+        errs = flash_bwd_checks({torch.bfloat16: FLASH_BF16_TOL},
+                                heads=heads, shapes=((b, s),),
+                                dtypes=(torch.bfloat16,), train=(b, s),
+                                tag=tag, oracle=True)
+        rows.update(timing_training(heads_cfg(heads), errs, batch=b, seq=s,
+                                    tag=tag))
+    for label, heads, tag in TP_PAGED:
+        print(f"  {label}: heads {heads[0]}/{heads[1]} of {heads[2]}")
+        err = paged_checks(heads=heads, oracle=True)
+        rows["paged_attention" + tag] = paged_row(
+            heads_cfg(heads), positions, err, "paged_attention" + tag)
+    return rows
+
+
+def rank_serve(seed, tp):
+    """One rank of llama3_8b served with mesh {"tp": tp}: phase 2's
+    prompts, paged, 32 greedy tokens."""
+    from ray_tpu_torch.llm.engine import LLMEngine, SamplingParams
+    from ray_tpu_torch.models.llama import PRESETS, init_params
+    from ray_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = PRESETS["llama3_8b"]
+    mesh = make_mesh({"tp": tp})
+    params = init_params(cfg, seed, device="cuda", dtype=cfg.dtype)
+    eng = LLMEngine(cfg, max_batch=8, max_seq=2048, params=params, mesh=mesh,
+                    kv="paged", page_size=64, seed=seed)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    prompts = serving_prompts(cfg, np.random.default_rng(seed))
+    serve(eng, prompts, SamplingParams(max_tokens=2))  # warm-up
+    steps0 = eng.stats()["decode_steps"]
+    reset_counts()
+    outs, step_s, step_tokens, _ = serve(eng, prompts,
+                                         SamplingParams(max_tokens=32))
+    launches = counts()[0]
+    out = dict(outs=outs, launches=launches,
+               decode_steps=eng.stats()["decode_steps"] - steps0,
+               kv_heads=eng.cache["k"].shape[2],
+               decode_tps=sum(step_tokens[1:]) / sum(step_s[1:]),
+               peak=torch.cuda.max_memory_allocated())
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def rank_train(seed, sizes, batch=16, seq=2048, steps=2):
+    """One rank of the bench preset's first ``steps`` train steps under
+    mesh ``sizes`` (None: one process, no mesh): phase 4's weights (from
+    the seed) and batch (the whole batch; the step cuts it over the data
+    axes), phase 4's optimizer with no warm-up (the first update at the
+    full learning rate)."""
+    from ray_tpu_torch.models.llama import PRESETS
+    from ray_tpu_torch.parallel.mesh import make_mesh
+    from ray_tpu_torch.train.step import (
+        init_train_state,
+        jit_train_step,
+        make_optimizer,
+    )
+
+    cfg = dataclasses.replace(PRESETS["bench"], attn_impl="flash")
+    mesh = make_mesh(sizes) if sizes else None
+    opt = make_optimizer(warmup=0, total_steps=1000,
+                         mu_dtype=torch.bfloat16)
+    state = init_train_state(cfg, opt, seed=seed, device="cuda", mesh=mesh)
+    step = jit_train_step(cfg, opt, mesh)
+    rng = np.random.default_rng(seed)
+    data = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (batch, seq + 1))).to("cuda")}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, norms, wall = [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, m = step(state, data)
+        sync()
+        wall.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    _, f1, f2 = counts()
+    out = dict(losses=losses, norms=norms, wall=wall, f1=f1, f2=f2,
+               peak=torch.cuda.max_memory_allocated())
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# Meshes of phase 8b's training runs, two ranks each.
+TWO_RANK_MESHES = {"fsdp=2": {"fsdp": 2}, "tp=2": {"tp": 2}}
+
+
+def _serve_and_train(seed):
+    """Phase 8b's work on one rank: llama3_8b served with mesh {"tp": 2},
+    then the bench steps under each of ``TWO_RANK_MESHES``."""
+    out = {"serve": rank_serve(seed, 2)}
+    out.update({name: rank_train(seed, sizes)
+                for name, sizes in TWO_RANK_MESHES.items()})
+    return out
+
+
+def _rank_main(rank, world, rdzv, results, work, args):
+    """A spawned rank: its GPU is cuda:0, shared with the other rank; gloo
+    carries the collectives (copying CUDA tensors through host memory).
+    Puts (rank, True, ``work(*args)``) or (rank, False, the traceback) on
+    ``results``."""
+    import torch.distributed as dist
+
+    try:
+        dist.init_process_group("gloo", init_method=rdzv, world_size=world,
+                                rank=rank)
+        torch.cuda.set_device(0)
+        results.put((rank, True, work(*args)))
+    except BaseException:  # the parent fails the phase with this text
+        import traceback
+
+        results.put((rank, False, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_two_ranks(work, args, timeout=600):
+    """Spawn two ranks running ``work(*args)`` (a module-level function),
+    wait for both results (at most ``timeout`` seconds), kill whatever is
+    left, raise on any failure."""
+    import multiprocessing as mp
+    import os
+    import queue
+    import tempfile
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rdzv_") as tmp:
+        rdzv = "file://" + os.path.join(tmp, "rendezvous")
+        procs = [ctx.Process(target=_rank_main,
+                             args=(r, 2, rdzv, results, work, args))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout
+        out = {}
+        try:
+            while len(out) < 2:
+                try:
+                    rank, ok, payload = results.get(
+                        timeout=max(deadline - time.monotonic(), 1.0))
+                except queue.Empty:
+                    raise SmokeFailure(f"{2 - len(out)} of two ranks gave "
+                                       f"no result in {timeout} s")
+                check(ok, f"rank {rank} of two failed:\n{payload}")
+                out[rank] = payload
+        finally:
+            for p in procs:
+                p.join(timeout=max(deadline - time.monotonic(), 5.0))
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+    return [out[0], out[1]]
+
+
+def phase8b(seed, p4, p2_outs):
+    """Two ranks on the one card over gloo (correctness only: their times
+    include host copies of every collective): llama3_8b at full width and
+    depth served with mesh {"tp": 2}, then the bench preset's first two
+    steps under {"fsdp": 2} and {"tp": 2}."""
+    from ray_tpu_torch.models.llama import PRESETS, init_params
+    from ray_tpu_torch.train import memory
+
+    print("phase 8b: two ranks on one card over gloo (correctness only)")
+    single = rank_train(seed, None)
+    print(f"  bench in one process, no warm-up: losses {single['losses']}, "
+          f"grad_norms {single['norms']}")
+    t0 = time.time()
+    ranks = run_two_ranks(_serve_and_train, (seed,))
+    print(f"  two ranks ran in {time.time() - t0:.1f} s")
+    cfg = PRESETS["llama3_8b"]
+    sv = [r["serve"] for r in ranks]
+    check(sv[0]["outs"] == sv[1]["outs"], "the tp ranks emitted different "
+          "streams")
+    check(all(len(o) == 32 for o in sv[0]["outs"]),
+          "a tp request did not finish with 32 tokens")
+    for r in sv:
+        check(r["kv_heads"] == cfg.n_kv_heads // 2,
+              f"a tp rank's pool holds {r['kv_heads']} KV heads")
+        check(r["launches"] == cfg.n_layers * r["decode_steps"],
+              f"a tp rank launched P1 {r['launches']} times for "
+              f"{r['decode_steps']} decode steps x {cfg.n_layers} layers")
+    print(f"  serving llama3_8b tp=2: {sv[0]['decode_steps']} decode steps, "
+          f"P1 launches {sv[0]['launches']} + {sv[1]['launches']}, "
+          f"{sv[0]['kv_heads']} KV heads per rank, decode "
+          f"{sv[0]['decode_tps']:.1f} tokens/s (gloo), peak "
+          f"{sv[0]['peak'] / 2**30:.2f} / {sv[1]['peak'] / 2**30:.2f} GiB "
+          f"per rank")
+    params = init_params(cfg, seed, device="cuda", dtype=cfg.dtype)
+    prompts = serving_prompts(cfg, np.random.default_rng(seed))
+    stream_check(cfg, params, prompts, sv[0]["outs"], "tp=2 greedy")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"single": single["losses"],
+           "serve_launches": sv[0]["launches"] + sv[1]["launches"],
+           "same_streams": sum(a == b for a, b in zip(sv[0]["outs"],
+                                                       p2_outs))}
+    print(f"  tp=2 streams equal to phase 2's single-process streams: "
+          f"{out['same_streams']} of {len(prompts)}")
+    bench = p4["cfg"]
+    for name in TWO_RANK_MESHES:
+        tr = [r[name] for r in ranks]
+        check(tr[0]["losses"] == tr[1]["losses"]
+              and tr[0]["norms"] == tr[1]["norms"],
+              f"{name}: the ranks report different losses")
+        for i, (loss, norm) in enumerate(zip(tr[0]["losses"],
+                                             tr[0]["norms"])):
+            want, want_norm = single["losses"][i], single["norms"][i]
+            rel, rel_norm = abs(loss / want - 1), abs(norm / want_norm - 1)
+            print(f"  bench {name} step {i}: loss {loss:.6f} (single "
+                  f"process {want:.6f}, rel {rel:.2e}), grad_norm "
+                  f"{norm:.6f} ({want_norm:.6f}, rel {rel_norm:.2e}), "
+                  f"{tr[0]['wall'][i]:.2f} s (gloo)")
+            check(rel <= TWO_RANK_LOSS_REL and rel_norm <= TWO_RANK_NORM_REL,
+                  f"{name} step {i}: loss or gradient norm off the single "
+                  f"process's by more than {TWO_RANK_LOSS_REL} / "
+                  f"{TWO_RANK_NORM_REL}")
+        n = bench.n_layers * 2
+        for r in tr:
+            check(r["f1"] == n and r["f2"] == n,
+                  f"{name}: a rank launched F1 {r['f1']} and F2 {r['f2']} "
+                  f"times, expected {n} each")
+        per_rank_batch = 16 // TWO_RANK_MESHES[name].get("fsdp", 1)
+        plan = memory.plan(bench, per_rank_batch, 2048,
+                           fsdp=TWO_RANK_MESHES[name].get("fsdp", 1))
+        print(f"  bench {name}: F1 {tr[0]['f1']} + {tr[1]['f1']}, F2 "
+              f"{tr[0]['f2']} + {tr[1]['f2']} launches; per-rank peak "
+              f"{tr[0]['peak'] / 2**30:.2f} / {tr[1]['peak'] / 2**30:.2f} "
+              f"GiB beside plan_memory(batch {per_rank_batch}, fsdp "
+              f"{TWO_RANK_MESHES[name].get('fsdp', 1)}) "
+              f"{plan.total_gb:.2f} GiB (remat flash_qkv priced as none)")
+        out[name] = dict(f1=tr[0]["f1"] + tr[1]["f1"],
+                         f2=tr[0]["f2"] + tr[1]["f2"],
+                         peaks=[r["peak"] for r in tr], plan=plan.total_gb,
+                         losses=tr[0]["losses"])
+    return out
+
 
 # ------------------------------------------------------------ timing
 def bound_of(nbytes, flops):
@@ -1710,6 +2106,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     p7 = phase7(args.seed)
     plans = planner_checks(p4, p6, p7)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_rows = phase8a(p2["first_positions"])
+    p8 = phase8b(args.seed, p4, p2["outs"])
     prof = p4["profile"]
     print(f"train: {p4['tokens_per_s']:.1f} tokens/s, "
           f"{p4['peak_share']:.2%} of dense bf16 peak, step "
@@ -1745,6 +2145,18 @@ def main() -> int:
           + "; ".join(f"{k} {v['pred_gib']:.2f} / {v['peak_gib']:.2f} "
                       f"({v['err']:+.1%}, factor {v['factor']:.3f})"
                       for k, v in plans.items()) + f" [{card}]")
+    print("tp-rank shapes checked in phase 8a, not on a main path here: "
+          + "; ".join(f"{k} {v['ms']:.4f} ms (plain {v['plain_ms']:.4f}, "
+                      f"bound {v['bound_ms']:.4f} by {v['bound_by']}, "
+                      f"library {v['library_ms']})"
+                      for k, v in tp_rows.items() if k not in TP_MAIN_ROWS)
+          + f" [{card}]")
+    print(f"two ranks on one card over gloo (correctness only): "
+          f"llama3_8b tp=2 streams equal to phase 2's: "
+          f"{p8['same_streams']} of 8; bench losses fsdp=2 "
+          f"{p8['fsdp=2']['losses']}, tp=2 {p8['tp=2']['losses']}, one "
+          f"process {p8['single']} [{card}]")
+    rows.update({k: tp_rows[k] for k in TP_MAIN_ROWS})
     print(f"run took {time.time() - t_start:.1f} s")
     # One row per kernel and main-path shape: the forward kernel runs in
     # the dense prefill (phase 3) and in training (phase 4).
@@ -1754,7 +2166,10 @@ def main() -> int:
                 "flash_fwd_train": p4["f1_launches"],
                 "flash_bwd": p4["f2_launches"],
                 "flash_fwd_train_d64": p5["f1_launches"],
-                "flash_bwd_d64": p5["f2_launches"]}
+                "flash_bwd_d64": p5["f2_launches"],
+                "paged_attention_tp2": p8["serve_launches"],
+                "flash_fwd_train_tp2": p8["tp=2"]["f1"],
+                "flash_bwd_tp2": p8["tp=2"]["f2"]}
     fwd = ("ray_tpu_torch/csrc/flash_fwd.cu",
            "ray_tpu/ops/pallas/flash_attention.py:48")
     paged = ("ray_tpu_torch/csrc/paged_attention.cu",
@@ -1769,6 +2184,9 @@ def main() -> int:
     }
     meta["flash_fwd_train_d64"] = fwd
     meta["flash_bwd_d64"] = meta["flash_bwd"]
+    meta["paged_attention_tp2"] = paged
+    meta["flash_fwd_train_tp2"] = fwd
+    meta["flash_bwd_tp2"] = meta["flash_bwd"]
     check(rows.keys() == meta.keys(),
           f"timed rows {sorted(rows)} are not the kernels {sorted(meta)}")
     kernels = [

@@ -1,9 +1,9 @@
-"""PyTorch + CUDA port of ray_tpu's LLM serving engine and single-device
-training step, for NVIDIA Hopper.
+"""PyTorch + CUDA port of ray_tpu's LLM serving engine and training, on
+one device or sharded over a mesh of ranks, for NVIDIA Hopper.
 
 The JAX package ``ray_tpu`` stays the reference; this package mirrors its
-layout (``ops/``, ``models/``, ``llm/``, ``train/``) so each module's
-counterpart is found at the same path. It imports torch, numpy and the
+layout (``ops/``, ``models/``, ``llm/``, ``train/``, ``parallel/``) so
+each module's counterpart is found at the same path. It imports torch, numpy and the
 standard library only. Hand-written CUDA kernels live under ``csrc/`` and
 are built with ``nvcc`` at first use (see ``_build.py``).
 

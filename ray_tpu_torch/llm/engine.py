@@ -11,10 +11,23 @@ attention kernel and the dense engine prefills through the flash kernel
 (for lengths the gate admits); on the CPU both take their plain PyTorch
 versions. Sampling draws from a ``torch.Generator`` on the engine's
 device, seeded from ``seed``.
+
+With ``mesh=`` (parallel/mesh.py, more than one rank) the engine is
+tensor-parallel SPMD, one process per device: every rank builds the same
+engine and calls the same methods in the same order. The parameters are
+placed by ``param_logical_axes`` and each rank keeps what it computes
+with (its heads, FFN columns and vocabulary rows over tp, everything
+gathered over the other axes); the KV cache or paged pool holds the
+rank's KV heads when tp divides them, else all of them. The paged kernel
+and the flash prefill run on each rank's heads. The logits are gathered
+over tp before sampling and every rank's generator has the same seed, so
+each rank samples the same token: a rank that sampled another would
+wait forever at the next collective.
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import threading
 import time
@@ -24,7 +37,7 @@ from functools import partial
 import numpy as np
 import torch
 
-from ray_tpu_torch import resolve_device
+from ray_tpu_torch import mesh_size, resolve_device
 from ray_tpu_torch.llm.kv_cache import (
     forward_decode,
     forward_prefill,
@@ -40,7 +53,14 @@ from ray_tpu_torch.llm.paged_kv import (
     prefix_hashes,
     propose_ngram_draft,
 )
-from ray_tpu_torch.models.llama import PRESETS, LlamaConfig, init_params
+from ray_tpu_torch.models.llama import (
+    PRESETS,
+    LlamaConfig,
+    init_params,
+    param_logical_axes,
+    use_params,
+)
+from ray_tpu_torch.parallel.sharding import shard_pytree, use_mesh
 
 
 @dataclass(frozen=True)
@@ -85,6 +105,7 @@ class LLMEngine:
         *,
         max_batch: int = 4,
         max_seq: int | None = None,
+        mesh=None,
         params=None,
         seed: int = 0,
         kv: str = "paged",  # "paged" (block-table pool) | "dense" (slab)
@@ -104,6 +125,12 @@ class LLMEngine:
             params = init_params(
                 cfg, seed, device=self.device, dtype=cfg.dtype
             )
+        self.mesh = mesh if mesh_size(mesh) > 1 else None
+        if self.mesh is not None:
+            axes = param_logical_axes(cfg)
+            with torch.no_grad():
+                params = use_params(shard_pytree(params, mesh, axes), axes,
+                                    cfg, mesh)
         self.params = params
         if kv not in ("paged", "dense"):
             raise ValueError(f"kv must be 'paged' or 'dense', got {kv!r}")
@@ -127,7 +154,8 @@ class LLMEngine:
             self.alloc = PageAllocator(num_pages, page_size)
             # +1: physical page 0 is the allocator's dump page.
             self.cache = init_paged_kv(
-                cfg, num_pages + 1, page_size, device=self.device
+                cfg, num_pages + 1, page_size, device=self.device,
+                mesh=self.mesh,
             )
             self.max_pages_per_seq = -(-self.max_seq // page_size)
             # The paged attention kernel on CUDA; its plain version on
@@ -155,7 +183,8 @@ class LLMEngine:
             self.prefill_chunk = None
             self._prefilling = None
             self.cache = init_kv_cache(
-                cfg, max_batch, self.max_seq, device=self.device
+                cfg, max_batch, self.max_seq, device=self.device,
+                mesh=self.mesh,
             )
             self._prefill = partial(
                 forward_prefill, cfg=cfg, use_flash=on_cuda
@@ -464,10 +493,17 @@ class LLMEngine:
                 logit_idx=len(context) - 1 - start,
             )
 
+    def _in_mesh(self):
+        """The engine's mesh made ambient for the model code (none: a
+        no-op)."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return use_mesh(self.mesh)
+
     def step(self) -> list[dict]:
         """Admit + one decode step. Returns finished request dicts."""
         finished: list[dict] = []
-        with self._lock:
+        with self._lock, self._in_mesh():
             if self._prefilling is not None:
                 self._prefill_step(finished)
             self._admit(finished)

@@ -17,7 +17,11 @@ from ray_tpu_torch import resolve_device
 from ray_tpu_torch.models.llama import (
     LlamaConfig,
     Params,
+    _tp_in,
+    _tp_out,
+    attn_out,
     embed,
+    kv_heads_per_rank,
     layer_params,
     lm_logits,
     project_qkv,
@@ -41,8 +45,12 @@ def init_kv_cache(
     max_batch: int,
     max_seq: int,
     device: str | torch.device = "cuda",
+    mesh=None,
 ) -> KVCache:
-    shape = (cfg.n_layers, max_batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    """Zeros [L, B, S, Hkv, Dh]; under a mesh this rank's KV heads
+    (:func:`~ray_tpu_torch.models.llama.kv_heads_per_rank`)."""
+    shape = (cfg.n_layers, max_batch, max_seq, kv_heads_per_rank(cfg, mesh),
+             cfg.head_dim)
     dev = resolve_device(device)
     return {
         "k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
@@ -52,10 +60,10 @@ def init_kv_cache(
 
 def _mlp(x, p, cfg):
     dt = cfg.dtype
-    h = rms_norm(x, p["mlp_norm"])
+    h = _tp_in(rms_norm(x, p["mlp_norm"]))
     gate = torch.nn.functional.silu(h @ p["w_gate"].to(dt))
     up = h @ p["w_up"].to(dt)
-    return x + (gate * up) @ p["w_down"].to(dt)
+    return x + _tp_out((gate * up) @ p["w_down"].to(dt))
 
 
 def flash_gate(seq: int, use_flash: bool) -> bool:
@@ -94,7 +102,7 @@ def forward_prefill(
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         attn = attend(q, k, v)
-        x = x + attn.reshape(x.shape) @ p["wo"].to(cfg.dtype)
+        x = x + attn_out(attn, p, cfg)
         x = _mlp(x, p, cfg)
         cache["k"][i, slot, :seq] = k[0].to(cfg.dtype)
         cache["v"][i, slot, :seq] = v[0].to(cfg.dtype)
@@ -121,7 +129,6 @@ def forward_decode(
     positions = positions.long()
     mask = torch.arange(max_seq, device=dev)[None, :] > positions[:, None]
     rows = torch.arange(b, device=dev)
-    n_rep = cfg.n_heads // cfg.n_kv_heads
     scale = cfg.head_dim**-0.5
     x = embed(params, tokens, cfg)  # [B, 1, d]
     for i in range(cfg.n_layers):
@@ -131,12 +138,13 @@ def forward_decode(
         k = apply_rope(k, cos, sin, positions=positions[:, None])
         cache["k"][i, rows, positions] = k[:, 0].to(cfg.dtype)
         cache["v"][i, rows, positions] = v[:, 0].to(cfg.dtype)
+        n_rep = q.shape[2] // cache["k"].shape[3]
         kk = cache["k"][i].repeat_interleave(n_rep, dim=2)  # [B, S, H, Dh]
         vv = cache["v"][i].repeat_interleave(n_rep, dim=2)
         logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk.float()) * scale
         logits = logits.masked_fill(mask[:, None, None, :], _NEG_INF)
         probs = torch.softmax(logits, dim=-1).to(cfg.dtype)
         attn = torch.einsum("bhqk,bkhd->bqhd", probs, vv)
-        x = x + attn.reshape(b, 1, -1) @ p["wo"].to(cfg.dtype)
+        x = x + attn_out(attn, p, cfg)
         x = _mlp(x, p, cfg)
     return lm_logits(params, x, cfg)[:, 0], cache

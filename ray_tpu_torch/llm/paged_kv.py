@@ -26,7 +26,9 @@ from ray_tpu_torch import resolve_device
 from ray_tpu_torch.llm.kv_cache import _mlp
 from ray_tpu_torch.models.llama import (
     LlamaConfig,
+    attn_out,
     embed,
+    kv_heads_per_rank,
     layer_params,
     lm_logits,
     project_qkv,
@@ -45,8 +47,14 @@ def init_paged_kv(
     num_pages: int,
     page_size: int = 64,
     device: str | torch.device = "cuda",
+    mesh=None,
 ) -> PagedKV:
-    shape = (cfg.n_layers, num_pages, cfg.n_kv_heads, page_size, cfg.head_dim)
+    """Zero pools [L, num_pages, Hkv, P, Dh]. Under a mesh whose tp divides
+    the KV heads each rank allocates only its heads' pool (never the whole
+    pool first); otherwise every rank holds all of them (the reference's
+    condition, :func:`~ray_tpu_torch.models.llama.kv_heads_per_rank`)."""
+    shape = (cfg.n_layers, num_pages, kv_heads_per_rank(cfg, mesh),
+             page_size, cfg.head_dim)
     dev = resolve_device(device)
     return {
         "k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
@@ -117,9 +125,9 @@ def _gather_page_attention(q, k_pool, v_pool, page_index, mask, cfg):
     q: [B, Q, H, Dh]; page_index: [B, n_pages] (>= 0);
     mask: [B, Q, window] bool, True = hidden. Returns [B, Q, H, Dh].
     """
-    b, q_len = q.shape[0], q.shape[1]
-    hkv = cfg.n_kv_heads
-    n_rep = cfg.n_heads // hkv
+    b, q_len, n_heads = q.shape[0], q.shape[1], q.shape[2]
+    hkv = k_pool.shape[1]  # under tp: this rank's heads
+    n_rep = n_heads // hkv
     dh = cfg.head_dim
     n_pages = page_index.shape[1]
     page_size = k_pool.shape[2]
@@ -138,13 +146,13 @@ def _gather_page_attention(q, k_pool, v_pool, page_index, mask, cfg):
         probs.reshape(b, hkv, n_rep, q_len, n_pages, page_size),
         vv,
     )
-    return attn.reshape(b, q_len, cfg.n_heads, dh)
+    return attn.reshape(b, q_len, n_heads, dh)
 
 
 def _to_pages(t: torch.Tensor, n_pages: int, page_size: int, cfg):
     """[1, n_pages * P, Hkv, Dh] -> head-major [n_pages, Hkv, P, Dh]."""
     return t.to(cfg.dtype).reshape(
-        n_pages, page_size, cfg.n_kv_heads, cfg.head_dim
+        n_pages, page_size, t.shape[2], cfg.head_dim
     ).transpose(1, 2)
 
 
@@ -178,7 +186,7 @@ def paged_prefill(
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         attn = causal_attention(q, k, v)
-        x = x + attn.reshape(x.shape) @ p["wo"].to(cfg.dtype)
+        x = x + attn_out(attn, p, cfg)
         x = _mlp(x, p, cfg)
         pool["k"][i][pages] = _to_pages(k, n_write_pages, page_size, cfg)
         pool["v"][i][pages] = _to_pages(v, n_write_pages, page_size, cfg)
@@ -225,7 +233,7 @@ def paged_prefill_chunk(
         attn = _gather_page_attention(
             q, k_pool, v_pool, pages[None, :], mask, cfg
         )
-        x = x + attn.reshape(1, c, -1) @ p["wo"].to(cfg.dtype)
+        x = x + attn_out(attn, p, cfg)
         x = _mlp(x, p, cfg)
     return lm_logits(params, x, cfg), pool
 
@@ -321,7 +329,7 @@ def paged_verify(
             attn = _gather_page_attention(
                 q, k_pool, v_pool, gather_index, mask, cfg
             )
-        x = x + attn.reshape(b, kk_w, -1) @ p["wo"].to(cfg.dtype)
+        x = x + attn_out(attn, p, cfg)
         x = _mlp(x, p, cfg)
     logits = lm_logits(params, x, cfg)  # [B, K, V]
 

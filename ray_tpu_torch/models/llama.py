@@ -40,6 +40,12 @@ quantizes. The q/k/v products are named only for an attention function
 that keeps its own residuals (``flash_attention``): under dense attention
 "flash" and "flash_qkv" keep nothing, and act as "full", as in the
 reference.
+
+Under a mesh (parallel/sharding.py ``use_mesh``) the parameters and the
+tokens may arrive as DTensors; the model computes on plain local tensors:
+each rank's activations are its shard ([B / (dp fsdp), S / sp, ...]), and
+the collectives between them are stated (parallel/collectives.py), where
+the reference's ``constrain``s leave them to XLA's partitioner.
 """
 
 from __future__ import annotations
@@ -59,11 +65,25 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
-from ray_tpu_torch import resolve_device
+from torch.distributed.tensor import DTensor
+
+from ray_tpu_torch import mesh_size, resolve_device
 import ray_tpu_torch.ops.flash_attention  # noqa: F401 (registers flash_fwd)
 from ray_tpu_torch.ops.attention import causal_attention
 from ray_tpu_torch.ops.norms import rms_norm
 from ray_tpu_torch.ops.rope import apply_rope, rope_frequencies
+from ray_tpu_torch.parallel import collectives as col
+from ray_tpu_torch.parallel.mesh import axis_index, axis_size
+from ray_tpu_torch.parallel.sharding import (
+    DATA_AXES,
+    active_mesh,
+    constrain,
+    current_scope,
+    gather_param,
+    local,
+    logical_spec,
+    mesh_scope,
+)
 
 Params = dict[str, Any]
 AttnFn = Callable[..., torch.Tensor]
@@ -100,12 +120,13 @@ class LlamaConfig:
     dtype: torch.dtype = torch.bfloat16
     # Remat mode of the layer body in training (see the module docstring).
     remat: str = "full"
-    # "dense" | "flash" (ring/ulysses: not ported; train/step.py raises).
+    # "dense" | "flash" | "ring" | "ulysses" (the last two need a mesh
+    # with sp > 1; train/step.py's jit_train_step builds them).
     attn_impl: str = "dense"
     # Embedding lookup: "gather" (table[tokens]), "onehot"
-    # (one_hot(tokens) @ table), or "auto", which is "gather" until the
-    # port has multi-GPU sharding (the reference takes "onehot" when more
-    # than one device is visible, for its SPMD partitioner).
+    # (one_hot(tokens) @ table), or "auto": "onehot" under a mesh of more
+    # than one rank, else "gather" (the reference's rule: "onehot" when
+    # more than one device is visible).
     embed_impl: str = "auto"
 
     @property
@@ -147,6 +168,27 @@ PRESETS: dict[str, LlamaConfig] = {
     # Llama-3-8B widths.
     "llama3_8b": LlamaConfig(),
 }
+
+
+def param_logical_axes(cfg: LlamaConfig) -> Params:
+    """Tree of logical-axis tuples, mirroring init_params' structure."""
+    del cfg
+    return {
+        "tok_emb": ("vocab", "embed"),
+        "blocks": {
+            "attn_norm": ("layers", "embed"),
+            "wq": ("layers", "embed", "heads"),
+            "wk": ("layers", "embed", "kv_heads"),
+            "wv": ("layers", "embed", "kv_heads"),
+            "wo": ("layers", "heads", "embed"),
+            "mlp_norm": ("layers", "embed"),
+            "w_gate": ("layers", "embed", "mlp"),
+            "w_up": ("layers", "embed", "mlp"),
+            "w_down": ("layers", "mlp", "embed"),
+        },
+        "final_norm": ("embed",),
+        "lm_head": ("embed", "vocab"),
+    }
 
 
 def _shapes(cfg: LlamaConfig) -> dict[str, tuple[tuple[int, ...], int]]:
@@ -247,19 +289,102 @@ def layer_params(params: Params, i: int) -> Params:
     return {k: v[i] for k, v in params["blocks"].items()}
 
 
+def attention_split(cfg: LlamaConfig, mesh) -> bool:
+    """Whether each tp rank attends its own query heads with their KV
+    heads (``n_kv_heads % tp == 0``: the heads, the KV cache and the
+    paged pool split over tp) or all ranks attend every head (the
+    projections gathered whole, each rank keeping its heads' share of the
+    output for ``wo``). Either way the query heads must split over tp."""
+    tp = axis_size(mesh, "tp")
+    if cfg.n_heads % tp:
+        raise ValueError(f"n_heads={cfg.n_heads} does not split over tp={tp}")
+    return cfg.n_kv_heads % tp == 0
+
+
+def kv_heads_per_rank(cfg: LlamaConfig, mesh) -> int:
+    """The KV heads a rank holds in its cache or pool: its share under a
+    mesh where :func:`attention_split`, else all of them."""
+    if mesh_size(mesh) > 1 and attention_split(cfg, mesh):
+        return cfg.n_kv_heads // axis_size(mesh, "tp")
+    return cfg.n_kv_heads
+
+
+def _tp_in(x: torch.Tensor) -> torch.Tensor:
+    """A tp-replicated activation entering tp-sharded products: the
+    identity, with its gradient summed over tp (no mesh: the identity)."""
+    return col.copy_to(x, active_mesh(), "tp")
+
+
+def _tp_out(x: torch.Tensor) -> torch.Tensor:
+    """The partial sums of a tp-sharded contraction, summed over tp."""
+    return col.reduce_from(x, active_mesh(), "tp")
+
+
+def use_params(params: Params, axes: Params, cfg: LlamaConfig, mesh,
+               ) -> Params:
+    """Under ``mesh``: every parameter of ``params`` (DTensors, or local
+    shards placed by ``axes``) as the tensor this rank computes with
+    (:func:`~ray_tpu_torch.parallel.sharding.gather_param`): gathered over
+    fsdp; kept split over tp and ep, except the router (gathered over ep)
+    and, where :func:`attention_split` is False, the q/k/v projections
+    (gathered over tp)."""
+    split = attention_split(cfg, mesh)
+
+    def use(name, t, ax):
+        whole = ()
+        if name == "router":
+            whole = ("ep",)
+        elif name in ("wq", "wk", "wv") and not split:
+            whole = ("tp",)
+        return gather_param(local(t), ax, mesh, whole)
+
+    out = {}
+    for key, val in params.items():
+        if isinstance(val, dict):
+            out[key] = {n: use(n, t, axes[key][n]) for n, t in val.items()}
+        else:
+            out[key] = use(key, val, axes[key])
+    return out
+
+
+def embed_impl(cfg: LlamaConfig) -> str:
+    """``cfg.embed_impl`` with "auto" resolved: "onehot" under a mesh of
+    more than one rank (:func:`~ray_tpu_torch.parallel.sharding.use_mesh`),
+    else "gather"."""
+    if cfg.embed_impl != "auto":
+        return cfg.embed_impl
+    return "gather" if active_mesh() is None else "onehot"
+
+
 def embed(params: Params, tokens: torch.Tensor, cfg: LlamaConfig):
     """Token embedding in ``cfg.dtype`` (port of the reference's
     ``_embed``). "gather" takes the rows, then casts them: the values of
     gathering from the cast table, without casting all of it (the
     gradient is accumulated into the rows in fp32). "onehot" multiplies a
     one-hot matrix by the cast table, as the reference does under a
-    sharded mesh. "auto" is "gather": the port runs on one device."""
+    sharded mesh. "auto": :func:`embed_impl`.
+
+    Under a mesh whose tp splits the vocabulary, ``params["tok_emb"]`` is
+    this rank's rows: each rank embeds the tokens that fall in its rows
+    (zeros elsewhere) and the sum over tp is the embedding."""
     table = params["tok_emb"]
-    impl = "gather" if cfg.embed_impl == "auto" else cfg.embed_impl
+    impl = embed_impl(cfg)
+    if impl not in ("gather", "onehot"):
+        raise ValueError(f"unknown embed_impl {cfg.embed_impl!r}")
+    mesh = active_mesh()
+    if mesh is not None and axis_size(mesh, "tp") > 1:
+        n = table.shape[0]
+        lo = axis_index(mesh, "tp") * n
+        idx = tokens.long() - lo
+        if impl == "gather":
+            inside = ((idx >= 0) & (idx < n)).unsqueeze(-1)
+            rows = table[idx.clamp(0, n - 1)].to(cfg.dtype) * inside
+        else:
+            hot = idx.unsqueeze(-1) == torch.arange(n, device=idx.device)
+            rows = hot.to(cfg.dtype) @ table.to(cfg.dtype)
+        return _tp_out(rows)
     if impl == "gather":
         return table[tokens].to(cfg.dtype)
-    if impl != "onehot":
-        raise ValueError(f"unknown embed_impl {cfg.embed_impl!r}")
     table = table.to(cfg.dtype)
     return F.one_hot(tokens.long(), table.shape[0]).to(table.dtype) @ table
 
@@ -384,20 +509,41 @@ def project_qkv(x: torch.Tensor, p: Params, cfg: LlamaConfig,
     [B, S, Hkv, Dh], before RoPE; the products under ``name``."""
     b, s, _ = x.shape
     dt = cfg.dtype
-    h = rms_norm(x, p["attn_norm"])
+    h = _tp_in(rms_norm(x, p["attn_norm"]))
     wq, wk, wv = (p[n].to(dt) for n in ("wq", "wk", "wv"))
+    # Heads from the weights' widths: under tp they are this rank's.
     with saved_as(name):
-        q = (h @ wq).reshape(b, s, cfg.n_heads, cfg.head_dim)
-        k = (h @ wk).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-        v = (h @ wv).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+        q = (h @ wq).reshape(b, s, -1, cfg.head_dim)
+        k = (h @ wk).reshape(b, s, -1, cfg.head_dim)
+        v = (h @ wv).reshape(b, s, -1, cfg.head_dim)
     return q, k, v
+
+
+def attn_out(attn: torch.Tensor, p: Params, cfg: LlamaConfig):
+    """The attention output [B, S, H, Dh] through ``wo``: under tp each
+    rank multiplies its heads by its rows of ``wo`` and the partial sums
+    are summed over tp (where every rank attended every head, it first
+    keeps its own heads)."""
+    b, s = attn.shape[:2]
+    o = attn.reshape(b, s, -1)
+    mesh = active_mesh()
+    if mesh is not None and not attention_split(cfg, mesh):
+        o = col.local_chunk(o, mesh, "tp", 2)
+    return _tp_out(o @ p["wo"].to(cfg.dtype))
+
+
+def vocab_logits(x: torch.Tensor, lm_head: torch.Tensor, dtype):
+    """``x @ lm_head`` in ``dtype``, upcast to fp32; under a mesh whose
+    tp splits the vocabulary, each rank's columns gathered over tp."""
+    logits = _tp_in(x) @ lm_head.to(dtype)
+    return col.gather_from(logits, active_mesh(), "tp", -1).float()
 
 
 def lm_logits(params: Params, x: torch.Tensor, cfg: LlamaConfig):
     """Final norm, then a ``cfg.dtype`` product upcast to fp32 (not an
     fp32 matmul, as in the reference)."""
     x = rms_norm(x, params["final_norm"])
-    return (x @ params["lm_head"].to(cfg.dtype)).float()
+    return vocab_logits(x, params["lm_head"], cfg.dtype)
 
 
 def _dense_ffn(h: torch.Tensor, p: Params, cfg: LlamaConfig):
@@ -406,13 +552,14 @@ def _dense_ffn(h: torch.Tensor, p: Params, cfg: LlamaConfig):
     in ``cfg.dtype`` under "flash_qkv_ffn": the reference's
     ``_dense_ffn_save``)."""
     dt = cfg.dtype
+    h = _tp_in(h)
     w_gate, w_up = p["w_gate"].to(dt), p["w_up"].to(dt)
     with saved_as("ffn_gate"):
         gate_pre = h @ w_gate
     with saved_as("ffn_up"):
         up = h @ w_up
     aux = h.new_zeros((), dtype=torch.float32)
-    return (F.silu(gate_pre) * up) @ p["w_down"].to(dt), aux
+    return _tp_out((F.silu(gate_pre) * up) @ p["w_down"].to(dt)), aux
 
 
 def _dense_ffn_q8(h: torch.Tensor, p: Params, cfg: LlamaConfig):
@@ -420,24 +567,57 @@ def _dense_ffn_q8(h: torch.Tensor, p: Params, cfg: LlamaConfig):
     int8 + a per-row fp32 scale (:func:`_int8_ckpt` of each product): the
     replay recomputes neither product and keeps no bf16 copy."""
     dt = cfg.dtype
+    mesh = active_mesh()
+    if mesh is not None and axis_size(mesh, "tp") > 1:
+        # A row's int8 scale is its max over all of d_ff: under tp it
+        # would need a max over tp inside the kept op.
+        raise NotImplementedError(
+            "remat 'flash_qkv_ffn8' under tp > 1 is not ported "
+            "(ROADMAP.md, Queue 1)")
     gate_pre = _int8_ckpt(h, "ffn_gate", p["w_gate"].to(dt))
     up = _int8_ckpt(h, "ffn_up", p["w_up"].to(dt))
     aux = h.new_zeros((), dtype=torch.float32)
     return (F.silu(gate_pre) * up) @ p["w_down"].to(dt), aux
 
 
-def _block(x, p, cos, sin, cfg: LlamaConfig, attn_fn: AttnFn, ffn_fn: FfnFn):
+def _block(x, p, cos, sin, cfg: LlamaConfig, attn_fn: AttnFn, ffn_fn: FfnFn,
+           axes: Params | None = None, scope=None):
     """Pre-norm attention + FFN sublayers; ffn_fn returns (out, aux) so MoE
-    layers (models/moe.py) reuse this block unchanged."""
-    b, s, _ = x.shape
+    layers (models/moe.py) reuse this block unchanged. Under a mesh
+    (``scope``, entered here so that a remat replay on autograd's thread
+    sees it too), ``p`` holds this rank's shards of the layer (placed by
+    ``axes``), gathered here for use, so a replay gathers them again
+    (ZeRO-3)."""
+    with mesh_scope(scope):
+        return _block_body(x, p, cos, sin, cfg, attn_fn, ffn_fn, axes)
+
+
+def _block_body(x, p, cos, sin, cfg, attn_fn, ffn_fn, axes):
+    mesh = active_mesh()
+    if mesh is not None:
+        p = use_params(p, axes, cfg, mesh)
     qkv = "flash_qkv" if getattr(attn_fn, "keeps_residuals", False) else None
     q, k, v = project_qkv(x, p, cfg, name=qkv)
     attn = attn_fn(apply_rope(q, cos, sin), apply_rope(k, cos, sin), v)
     if cfg.remat == "attn":  # the copy is made only where it is kept
         attn = checkpoint_name(attn, "attn_out")
-    x = x + attn.reshape(b, s, -1) @ p["wo"].to(cfg.dtype)
+    x = x + attn_out(attn, p, cfg)
     ffn_out, aux = ffn_fn(rms_norm(x, p["mlp_norm"]), p, cfg)
     return x + ffn_out, aux
+
+
+def _local_tokens(tokens: torch.Tensor, mesh):
+    """(this rank's tokens [B / (dp fsdp), S / sp], its first position,
+    the whole sequence length). A DTensor is placed by ("batch",
+    "act_seq"); a plain tensor is this rank's batch shard, whole
+    sequences, and is cut over sp here."""
+    if isinstance(tokens, DTensor):
+        seq = tokens.shape[1]
+        tokens = constrain(tokens, "batch", "act_seq").to_local()
+    else:
+        seq = tokens.shape[1]
+        tokens = col.local_chunk(tokens, mesh, "sp", 1)
+    return tokens, axis_index(mesh, "sp") * tokens.shape[1], seq
 
 
 def forward_with_aux(
@@ -457,6 +637,17 @@ def forward_with_aux(
     (module docstring); ``attn_fn`` defaults to the plain causal attention.
     Under "flash_qkv_ffn8" the dense FFN becomes :func:`_dense_ffn_q8`;
     another ``ffn_fn`` (the MoE FFN) stays as it is, as in the reference.
+
+    Under :func:`~ray_tpu_torch.parallel.sharding.use_mesh` (more than
+    one rank) the parameters are DTensors placed by
+    :func:`param_logical_axes` (or the ffn's ``param_axes``), ``tokens`` a
+    DTensor or this rank's batch shard, and the logits (or hidden states)
+    come back as a DTensor placed by ("batch", "act_seq", None); the aux
+    loss is its mean over the data ranks. Each rank computes on its
+    shards, states its collectives, and runs ``attn_fn`` on its local
+    batch and heads; with sp > 1, on its sequence block, which only an
+    attention that passes blocks between ranks (``seq_sharded``: ring,
+    Ulysses) takes.
     """
     if cfg.remat not in REMAT_MODES:
         raise ValueError(f"unknown remat {cfg.remat!r}")
@@ -465,35 +656,64 @@ def forward_with_aux(
     if ffn_fn is _dense_ffn and cfg.remat == "flash_qkv_ffn8":
         ffn_fn = _dense_ffn_q8
     contexts = _remat_contexts(cfg.remat)
-    seq = tokens.shape[1]
+    mesh = active_mesh()
+    block_axes = None
+    offset, seq = 0, tokens.shape[1]
+    if mesh is not None:
+        if axis_size(mesh, "sp") > 1 and not getattr(attn_fn, "seq_sharded",
+                                                     False):
+            raise ValueError("sp > 1 needs an attention that passes "
+                             "sequence blocks between ranks (attn_impl "
+                             "'ring' or 'ulysses')")
+        axes = getattr(ffn_fn, "param_axes", param_logical_axes)(cfg)
+        block_axes = {n: a[1:] for n, a in axes["blocks"].items()}
+        tokens, offset, seq = _local_tokens(tokens, mesh)
+        top = {k: v for k, v in params.items() if k != "blocks"}
+        params = dict(use_params(top, axes, cfg, mesh),
+                      blocks={k: local(v)
+                              for k, v in params["blocks"].items()})
     cos, sin = rope_frequencies(
         cfg.head_dim, seq, cfg.rope_theta, device=tokens.device
     )
+    cos, sin = (t[offset:offset + tokens.shape[1]] for t in (cos, sin))
     x = embed(params, tokens, cfg)
     aux_total = x.new_zeros((), dtype=torch.float32)
     # One unbind per stacked leaf: its backward stacks the layers' grads
     # once, where indexing would build a full-size grad per layer.
     layers = {k: v.unbind(0) for k, v in params["blocks"].items()}
+    scope = current_scope()
     for i in range(cfg.n_layers):
         p = {k: v[i] for k, v in layers.items()}
         if cfg.remat == "none":
-            x, aux = _block(x, p, cos, sin, cfg, attn_fn, ffn_fn)
+            x, aux = _block(x, p, cos, sin, cfg, attn_fn, ffn_fn, block_axes,
+                            scope)
         else:
             kw = {} if contexts is None else {"context_fn": contexts}
             x, aux = checkpoint(_block, x, p, cos, sin, cfg, attn_fn, ffn_fn,
-                                use_reentrant=False,
+                                block_axes, scope, use_reentrant=False,
                                 preserve_rng_state=False, **kw)
         aux_total = aux_total + aux
     if return_hidden:
-        return rms_norm(x, params["final_norm"]), aux_total
-    return lm_logits(params, x, cfg), aux_total
+        out = rms_norm(x, params["final_norm"])
+    else:
+        out = lm_logits(params, x, cfg)
+    if mesh is None:
+        return out, aux_total
+    out = DTensor.from_local(out, mesh, logical_spec(
+        ("batch", "act_seq", None)), run_check=False)
+    return out, col.reduce_from(aux_total, mesh, DATA_AXES, mean=True)
 
 
 @torch.no_grad()
 def forward(
     params: Params, tokens: torch.Tensor, cfg: LlamaConfig
 ) -> torch.Tensor:
-    """tokens [B, S] int -> logits [B, S, V] fp32 (inference only)."""
+    """tokens [B, S] int -> logits [B, S, V] fp32 (inference only). Under
+    a mesh: :func:`forward_with_aux`'s sharded forward, its logits a
+    DTensor."""
+    if active_mesh() is not None:
+        return forward_with_aux(params, tokens,
+                                dataclasses.replace(cfg, remat="none"))[0]
     b, s = tokens.shape
     dt = cfg.dtype
     cos, sin = rope_frequencies(

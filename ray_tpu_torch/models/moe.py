@@ -8,9 +8,16 @@ Switch load-balance loss is returned beside the output. The attention
 sublayer, the layer loop and the remat modes are models/llama.py's: this
 module only swaps the FFN.
 
-On one device, without the reference's mesh: ``moe_param_logical_axes``
-and ``constrain`` (expert parallelism over the "ep" axis) are not ported
-(ROADMAP.md, Queue 1).
+Under a mesh (parallel/sharding.py ``use_mesh``) the experts are split
+over the "ep" axis (``moe_param_logical_axes``) and their hidden dim over
+tp. The tokens are replicated over ep, as in the reference, where XLA
+places the experts' work by two ``constrain``s on the expert dim; here the
+activations are plain local tensors and each ep rank runs its own experts
+on the tokens routed to them, and the combine is summed over ep. Routing groups are cut from the whole batch, as the reference's
+reshape of the global tokens cuts them; when a group would span ranks
+(``g`` does not divide a rank's tokens) the tokens are gathered over the
+data axes first and every data rank routes the whole batch, keeping its
+own rows of the output.
 
 Where the reference builds one-hot dispatch and combine tensors
 ([G, g, e, capacity], 335 MB each in fp32 at moe_bench, batch 16 x 2048)
@@ -34,8 +41,12 @@ from ray_tpu_torch.models.llama import (
     Params,
     _init_params,
     forward_with_aux,
+    param_logical_axes,
     truncated_normal,
 )
+from ray_tpu_torch.parallel import collectives as col
+from ray_tpu_torch.parallel.mesh import axis_index, axis_size
+from ray_tpu_torch.parallel.sharding import active_mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,6 +78,17 @@ MOE_PRESETS: dict[str, MoEConfig] = {
         n_kv_heads=8, d_ff=4096, max_seq=2048, num_experts=8, top_k=2,
     ),
 }
+
+
+def moe_param_logical_axes(cfg: MoEConfig) -> Params:
+    axes = param_logical_axes(cfg)
+    axes["blocks"].update(
+        router=("layers", "embed", "expert"),
+        w_gate=("layers", "expert", "embed", "mlp"),
+        w_up=("layers", "expert", "embed", "mlp"),
+        w_down=("layers", "expert", "mlp", "embed"),
+    )
+    return axes
 
 
 def init_moe_params(
@@ -129,40 +151,80 @@ def route(tokens: torch.Tensor, router: torch.Tensor, cfg: MoEConfig):
 def moe_ffn(x: torch.Tensor, p: Params, cfg: MoEConfig):
     """FFN hook of models/llama.py ``_block``: x [B, S, d] -> (out,
     aux loss). Routing and the combine run in fp32, the experts' FFNs in
-    ``cfg.dtype``."""
+    ``cfg.dtype``. Under a mesh ``p`` holds the whole router, this rank's
+    experts (over ep) and their hidden columns (over tp)."""
+    mesh = active_mesh()
+    if mesh is None:
+        return _moe_ffn(x, p, cfg, None)
+    if axis_size(mesh, "sp") > 1:
+        raise NotImplementedError("MoE under sp > 1 is not ported")
+    data = ("dp", "fsdp")
+    b, s, d = x.shape
+    n_data = col.group_size(mesh, data)
+    if b * s % group_size(b * s * n_data, cfg) == 0:
+        return _moe_ffn(x, p, cfg, mesh)
+    # A routing group spans ranks: route the whole batch on every rank.
+    out, aux = _moe_ffn(col.all_gather(x, mesh, data, 0), p, cfg, mesh)
+    return col.local_chunk(out, mesh, data, 0), aux
+
+
+def _moe_ffn(x: torch.Tensor, p: Params, cfg: MoEConfig, mesh):
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.top_k
     g = group_size(b * s, cfg)
     G = b * s // g
     dt = cfg.dtype
+    ep = 1 if mesh is None else axis_size(mesh, "ep")
+    e_local = p["w_gate"].shape[0]  # this rank's experts (all without ep)
+    lo = 0 if ep == 1 else axis_index(mesh, "ep") * e_local
+    # Every ep rank sees every token; the gradient each computes (its
+    # experts', its share of the router's) is partial.
+    x = col.copy_to(x, mesh, "ep")
     tokens = x.reshape(G, g, d)
     probs, gate_vals, gate_idx, slot, capacity = route(tokens, p["router"],
                                                        cfg)
-    keep = slot < capacity
+    # The choices this rank's experts take.
+    mine = (gate_idx >= lo) & (gate_idx < lo + e_local)
+    keep = (slot < capacity) & mine
+    local_idx = (gate_idx - lo).clamp(0, e_local - 1)
     group = torch.arange(G, device=x.device).view(G, 1, 1).expand_as(slot)
 
     # Dispatch: each kept choice's token row into its expert's slot; the
-    # dropped ones into a spare slot past the capacity, then cut off.
+    # dropped ones (and other ranks' choices) into a spare slot past the
+    # capacity, then cut off. Under tp the experts' products are split on
+    # their hidden dim, so the rows enter them replicated.
+    src = col.copy_to(tokens, mesh, "tp")
     spill = torch.where(keep, slot, capacity)
-    expert_in = tokens.new_zeros((e, G, capacity + 1, d)).index_put(
-        (gate_idx, group, spill), tokens.unsqueeze(2).expand(G, g, k, d)
-    )[:, :, :capacity].to(dt).reshape(e, G * capacity, d)
+    expert_in = src.new_zeros((e_local, G, capacity + 1, d)).index_put(
+        (local_idx, group, spill), src.unsqueeze(2).expand(G, g, k, d)
+    )[:, :, :capacity].to(dt)
+    expert_in = expert_in.reshape(e_local, G * capacity, d)
     gate = F.silu(torch.bmm(expert_in, p["w_gate"].to(dt)))
     up = torch.bmm(expert_in, p["w_up"].to(dt))
     expert_out = torch.bmm(gate * up, p["w_down"].to(dt))
-    expert_out = expert_out.view(e, G, capacity, d)
+    expert_out = col.reduce_from(expert_out, mesh, "tp")
+    expert_out = expert_out.view(e_local, G, capacity, d)
 
-    # Combine: the gate-weighted kept choices, summed in fp32.
-    picked = expert_out[gate_idx, group, slot.clamp(max=capacity - 1)]
+    # Combine: the gate-weighted kept choices, summed in fp32 (over ep:
+    # each rank adds its experts' terms).
+    picked = expert_out[local_idx, group, slot.clamp(max=capacity - 1)]
     weight = (gate_vals * keep).unsqueeze(-1)
-    out = (weight * picked.float()).sum(2).to(dt)
+    out = col.reduce_from((weight * picked.float()).sum(2).to(dt), mesh,
+                          "ep")
 
     # Load-balance loss: e * sum_e (fraction routed) * (mean prob), over
     # every top-k choice, averaged over groups.
     me = probs.mean(1)  # [G, e]
     ce = F.one_hot(gate_idx, e).float().sum(2).mean(1)  # [G, e]
     aux = e * (me * ce).sum(-1).mean() * cfg.aux_loss_weight
+    if ep > 1:
+        # Every ep rank holds the whole aux loss; its gradient is taken
+        # 1/ep times on each, so that it is partial like the combine's.
+        aux = aux.detach() + (aux - aux.detach()) / ep
     return out.reshape(b, s, d), aux
+
+
+moe_ffn.param_axes = moe_param_logical_axes  # read by forward_with_aux
 
 
 def moe_forward(

@@ -33,6 +33,7 @@ import functools
 import torch
 
 from ray_tpu_torch import _build, mesh_size
+from ray_tpu_torch.parallel.sharding import per_shard
 
 _MASK = -1e9
 KERNEL_HEAD_DIMS = (64, 128)  # the head sizes csrc/flash_{fwd,bwd}.cu build
@@ -338,14 +339,25 @@ def flash_attention(
 flash_attention.keeps_residuals = True
 
 
-def make_flash_attention(mesh=None):
+def make_flash_attention(mesh=None, batch_axes=("dp", "fsdp"),
+                         head_axis="tp"):
     """The trainer's attention function (counterpart of the reference's
-    ``make_flash_attention``): :func:`flash_attention` on one device. A mesh
-    of more than one device raises until the port has multi-GPU sharding
-    (ROADMAP.md, Queue 1)."""
-    if mesh_size(mesh) > 1:
-        raise NotImplementedError(
-            "make_flash_attention: sharded meshes are not ported yet "
-            "(ROADMAP.md, Queue 1: tensor parallelism and multi-GPU)"
-        )
-    return flash_attention
+    ``make_flash_attention``, which runs the kernel per shard under
+    ``shard_map``). Without a mesh, or on one of one rank:
+    :func:`flash_attention`. Under a larger mesh: batch sharded over
+    ``batch_axes``, heads over ``head_axis``, the sequence local; each rank
+    runs F1 forward and F2 backward on its own [B / (dp fsdp), S, H / tp,
+    D] through the same registered op. DTensor inputs are redistributed to
+    those placements and the output is a DTensor with them; plain tensors
+    are taken as this rank's shards already (what the model hands it
+    under ``use_mesh``). A local shard of a head-split view need not be
+    contiguous, and the kernels take contiguous k and v: each shard is
+    made contiguous here."""
+    if mesh_size(mesh) == 1:
+        return flash_attention
+    sharded = per_shard(
+        lambda q, k, v: flash_attention(q.contiguous(), k.contiguous(),
+                                        v.contiguous()),
+        mesh, batch_axes, None, head_axis)
+    sharded.keeps_residuals = True
+    return sharded

@@ -11,9 +11,18 @@ adds 1e-6 to the norm, so neither gives the same numbers.
 
 The MoE model (models/moe.py) trains through the same entry points: an
 ``MoEConfig`` selects its parameters and its loss, cross-entropy plus the
-load-balance loss. Meshes of more than one device, ring/ulysses attention
-and the device-memory ledger claims are not ported yet (ROADMAP.md,
-Queue 1).
+load-balance loss.
+
+Under a mesh of more than one rank (parallel/mesh.py; one process per
+device), :func:`jit_train_step` runs the same step on every rank, SPMD:
+the parameters and both AdamW moments are DTensors placed by
+:func:`state_logical_axes` (fsdp on ``embed``, tp on ``heads``,
+``kv_heads``, ``mlp`` and ``vocab``, ep on ``expert``), the batch is cut
+on ``batch``, each rank computes on its shards (weights sharded over fsdp
+gathered at use: ZeRO-3), each gradient arrives reduced over the data
+axes with its parameter's placements, :func:`global_norm` is the norm of
+the whole tensors, and AdamW updates the local shards. The device-memory
+ledger claims are not ported (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ from typing import Any, Iterator, NamedTuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Shard
 from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch import mesh_size, resolve_device
@@ -30,9 +40,33 @@ from ray_tpu_torch.models.llama import (
     LlamaConfig,
     forward_with_aux,
     init_params,
+    param_logical_axes,
+    use_params,
+    vocab_logits,
 )
-from ray_tpu_torch.models.moe import MoEConfig, init_moe_params, moe_forward
+from ray_tpu_torch.models.moe import (
+    MoEConfig,
+    init_moe_params,
+    moe_forward,
+    moe_param_logical_axes,
+)
 from ray_tpu_torch.ops.flash_attention import make_flash_attention
+from ray_tpu_torch.parallel import collectives as col
+from ray_tpu_torch.parallel.mesh import MESH_AXES
+from ray_tpu_torch.parallel.ring_attention import make_ring_attention
+from ray_tpu_torch.parallel.sharding import (
+    DATA_AXES,
+    active_mesh,
+    constrain,
+    current_scope,
+    distribute,
+    local,
+    logical_spec,
+    mesh_scope,
+    shard_pytree,
+    use_mesh,
+)
+from ray_tpu_torch.parallel.ulysses import make_ulysses_attention
 
 Params = dict[str, Any]
 
@@ -58,9 +92,35 @@ def _unflatten(items) -> Params:
 
 def global_norm(tree: Params) -> torch.Tensor:
     """sqrt of the sum of every leaf's sum of squares, in fp32 (the
-    reference's ``optax.global_norm``, summed leaf by leaf in its order)."""
-    sq = (t.float().square().sum() for _, t in _flatten(tree))
-    return torch.sqrt(sum(sq))
+    reference's ``optax.global_norm``, summed leaf by leaf in its order).
+    For DTensor leaves, the norm of the whole tensors: each rank sums its
+    shard's squares, and a leaf's sum is added up over the mesh axes it is
+    sharded on only (summing over an axis it is replicated on would count
+    it once per rank)."""
+    leaves = [t for _, t in _flatten(tree)]
+    if not any(isinstance(t, DTensor) for t in leaves):
+        return torch.sqrt(sum(t.float().square().sum() for t in leaves))
+    mesh = leaves[0].device_mesh
+    by_axes: dict[tuple[str, ...], torch.Tensor] = {}
+    for t in leaves:
+        axes = tuple(a for a, p in zip(MESH_AXES, t.placements)
+                     if isinstance(p, Shard))
+        sq = local(t).float().square().sum()
+        by_axes[axes] = by_axes[axes] + sq if axes in by_axes else sq
+    with torch.no_grad():
+        total = sum(col.reduce_from(sq, mesh, axes)
+                    for axes, sq in by_axes.items())
+    return torch.sqrt(total)
+
+
+def _zeros_like(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Zeros of ``t``'s shape in ``dtype``; a DTensor's keep its mesh and
+    placements (allocated as shards)."""
+    if isinstance(t, DTensor):
+        return DTensor.from_local(
+            torch.zeros_like(t.to_local(), dtype=dtype), t.device_mesh,
+            t.placements, run_check=False)
+    return torch.zeros_like(t, dtype=dtype, requires_grad=False)
 
 
 def _as_dtype(x: float, dtype: torch.dtype) -> float:
@@ -126,8 +186,7 @@ class AdamW:
     def init(self, params: Params) -> AdamWState:
         def zeros(dtype=None):
             return _unflatten(
-                (path, torch.zeros_like(t, dtype=dtype or t.dtype,
-                                        requires_grad=False))
+                (path, _zeros_like(t.detach(), dtype or t.dtype))
                 for path, t in _flatten(params)
             )
 
@@ -138,7 +197,9 @@ class AdamW:
               grad_norm: torch.Tensor | None = None) -> AdamWState:
         """Update ``params`` and the moments of ``state`` in place from
         ``grads``; returns the state with the count advanced. Pass
-        ``grad_norm`` when the caller has computed it already."""
+        ``grad_norm`` when the caller has computed it already. DTensors
+        are updated shard by shard (every operation is elementwise; the
+        clip's norm is the whole tensors')."""
         g_norm = global_norm(grads) if grad_norm is None else grad_norm
         keep = g_norm < self.grad_clip
         one = torch.ones_like(g_norm)
@@ -153,6 +214,7 @@ class AdamW:
             _flatten(params), _flatten(grads), _flatten(state.mu),
             _flatten(state.nu),
         ):
+            p, g, mu, nu = (local(t) for t in (p, g, mu, nu))
             g = g.float() / denom * mult
             mu32 = g * (1 - b1) + mu.float() * _as_dtype(b1, mu.dtype)
             nu.copy_(g.square() * (1 - b2) + nu * b2)
@@ -257,24 +319,46 @@ def make_optimizer(
     return AdamW(lr, warmup, total_steps, weight_decay, grad_clip, mu_dtype)
 
 
+def _model_fns(cfg: LlamaConfig):
+    """(init, logical_axes) for the config's model family: dense Llama or
+    MoE (the reference's ``_model_fns``)."""
+    if isinstance(cfg, MoEConfig):
+        return init_moe_params, moe_param_logical_axes
+    return init_params, param_logical_axes
+
+
+def state_logical_axes(cfg: LlamaConfig, optimizer: AdamW) -> TrainState:
+    """Logical axes of every leaf of :class:`TrainState`: the moments mirror
+    their parameter's axes, the step and the count get ()."""
+    del optimizer  # the moments are param-shaped, leaf for leaf
+    p_axes = _model_fns(cfg)[1](cfg)
+    return TrainState((), p_axes, AdamWState((), p_axes, p_axes))
+
+
 def init_train_state(
     cfg: LlamaConfig,
     optimizer: AdamW,
     seed: int = 0,
     device: str | torch.device = "cuda",
+    mesh=None,
 ) -> TrainState:
     """fp32 parameters from ``seed`` on ``device`` (``init_moe_params`` for
     an ``MoEConfig``, else ``init_params``: the reference's
-    ``_model_fns``), requiring grad, and a fresh optimizer state."""
-    init = init_moe_params if isinstance(cfg, MoEConfig) else init_params
+    ``_model_fns``), requiring grad, and a fresh optimizer state. Under a
+    mesh of more than one rank every rank draws the same parameters and
+    keeps its shards: DTensors placed by :func:`state_logical_axes`."""
+    init, logical_axes = _model_fns(cfg)
     params = init(cfg, seed, device=device)
+    if mesh_size(mesh) > 1:
+        params = shard_pytree(params, mesh, logical_axes(cfg))
     for _, t in _flatten(params):
         t.requires_grad_(True)
     return TrainState(0, params, optimizer.init(params))
 
 
-def _ce_chunk(x, lm_head, targets, dtype):
-    logits = (x @ lm_head.to(dtype)).float()
+def _ce_chunk(x, lm_head, targets, dtype, scope=None):
+    with mesh_scope(scope):
+        logits = vocab_logits(x, lm_head, dtype)
     logz = torch.logsumexp(logits, dim=-1)
     tgt = logits.gather(-1, targets.long()[..., None])[..., 0]
     return (logz - tgt).sum()
@@ -291,17 +375,20 @@ def chunked_cross_entropy(
     checkpointed projection per sequence chunk, so forward and backward
     hold one chunk's [B, chunk, V] logits at a time. A chunk that does not
     divide S becomes its largest divisor, or S itself below 128 (the
-    reference's rule)."""
+    reference's rule). Under a mesh whose tp splits the vocabulary,
+    ``lm_head`` is this rank's columns and each chunk's logits are
+    gathered over tp."""
     b, s, _ = hidden.shape
     if s % chunk:
         chunk = next(c for c in range(min(chunk, s), 0, -1) if s % c == 0)
         if chunk < 128:
             chunk = s
     total = hidden.new_zeros((), dtype=torch.float32)
+    scope = current_scope()
     for i in range(0, s, chunk):
         total = total + checkpoint(
             _ce_chunk, hidden[:, i:i + chunk], lm_head,
-            targets[:, i:i + chunk], dtype, use_reentrant=False,
+            targets[:, i:i + chunk], dtype, scope, use_reentrant=False,
             preserve_rng_state=False,
         )
     return total / (b * s)
@@ -316,7 +403,12 @@ def loss_fn(
     """Next-token cross entropy. batch["tokens"]: [B, S+1] int. For an
     ``MoEConfig`` the loss is cross entropy plus the load-balance loss,
     reported as ``metrics["aux_loss"]`` (``metrics["loss"]`` stays the
-    cross entropy)."""
+    cross entropy).
+
+    Under a mesh (``use_mesh``) the parameters are DTensors and
+    ``tokens`` this rank's batch shard; the loss and the metrics are the
+    whole batch's, the same on every rank, and each rank's backward gives
+    its own share of every gradient."""
     tokens = batch["tokens"]
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     moe = isinstance(cfg, MoEConfig)
@@ -324,7 +416,17 @@ def loss_fn(
     hidden, aux = forward(
         params, inputs, cfg, attn_fn=attn_fn, return_hidden=True
     )
-    ce = chunked_cross_entropy(hidden, params["lm_head"], targets, cfg.dtype)
+    lm_head = params["lm_head"]
+    mesh = active_mesh()
+    if mesh is not None:
+        hidden = hidden.to_local()
+        targets = col.local_chunk(targets, mesh, "sp", 1)
+        lm_head = use_params({"lm_head": lm_head},
+                             {"lm_head": ("embed", "vocab")}, cfg,
+                             mesh)["lm_head"]
+    ce = chunked_cross_entropy(hidden, lm_head, targets, cfg.dtype)
+    if mesh is not None:
+        ce = col.reduce_from(ce, mesh, DATA_AXES, mean=True)
     metrics = {"loss": ce, "perplexity": torch.exp(ce)}
     if not moe:
         return ce, metrics
@@ -370,24 +472,41 @@ def make_train_step(cfg: LlamaConfig, optimizer: AdamW, attn_fn=None):
     return train_step
 
 
-def jit_train_step(cfg: LlamaConfig, optimizer: AdamW, mesh=None):
-    """The train step for ``cfg.attn_impl`` on one device: "flash" runs the
-    flash kernels (:func:`make_flash_attention`), "dense" the plain
-    attention. (The name is the reference's; PyTorch runs eagerly.)"""
-    if mesh_size(mesh) > 1:
-        raise NotImplementedError(
-            "jit_train_step: meshes of more than one device are not ported "
-            "yet (ROADMAP.md, Queue 1)"
-        )
+def jit_train_step(cfg: LlamaConfig, optimizer: AdamW, mesh=None,
+                   batch_axes: tuple = ("batch", None)):
+    """The train step for ``cfg.attn_impl``: "flash" runs the flash kernels
+    (:func:`make_flash_attention`), "dense" the plain attention, "ring"
+    and "ulysses" the sequence-parallel attentions over the mesh's sp.
+    (The name is the reference's; PyTorch runs eagerly.)
+
+    A mesh of one rank (or None) returns the plain step, as the reference
+    does. Under a larger mesh every rank calls the step with the state of
+    :func:`init_train_state` (``mesh=``) or :func:`shard_pytree` by
+    :func:`state_logical_axes`, and the batch: a DTensor, or the whole
+    batch, the same on every rank; ``batch_axes`` places the tokens
+    [B, S+1] (the sequence is cut over sp inside the model)."""
     if cfg.attn_impl == "flash":
         attn_fn = make_flash_attention(mesh)
     elif cfg.attn_impl == "dense":
         attn_fn = None
-    elif cfg.attn_impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attn_impl={cfg.attn_impl!r} is not ported yet (ROADMAP.md, "
-            "Queue 1)"
-        )
+    elif cfg.attn_impl == "ring":
+        attn_fn = make_ring_attention(mesh)
+    elif cfg.attn_impl == "ulysses":
+        attn_fn = make_ulysses_attention(mesh)
     else:
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
-    return make_train_step(cfg, optimizer, attn_fn=attn_fn)
+    step = make_train_step(cfg, optimizer, attn_fn=attn_fn)
+    if mesh_size(mesh) == 1:
+        return step
+    placements = logical_spec(batch_axes)
+
+    def step_in_mesh(state: TrainState, batch: dict[str, torch.Tensor]):
+        tokens = batch["tokens"]
+        with use_mesh(mesh):
+            if isinstance(tokens, DTensor):
+                tokens = constrain(tokens, *batch_axes).to_local()
+            else:
+                tokens = distribute(tokens, mesh, placements).to_local()
+            return step(state, {"tokens": tokens})
+
+    return step_in_mesh

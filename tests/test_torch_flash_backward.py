@@ -139,12 +139,39 @@ def test_backward_wrapper_rejects_bad_inputs():
 
 
 def test_make_flash_attention_single_device_only():
+    """No mesh, or a mesh of one rank: the flash op itself."""
+    class Mesh:
+        size = 1
+
+    for mesh in (None, Mesh()):
+        fn = make_flash_attention(mesh)
+        assert fn is flash_attention
+        # models/llama.py takes the "flash_qkv" split on this attribute.
+        assert fn.keeps_residuals
+
+
+def test_make_flash_attention_mesh_returns_per_shard_fn(monkeypatch):
+    """A mesh of more than one rank: a per-shard function that takes plain
+    tensors as this rank's shards and hands the op contiguous q, k, v (a
+    local shard of a head-split view need not be contiguous). Its values
+    against the JAX package are in tests/test_torch_parallel_train.py."""
     class Mesh:
         size = 4
 
-    fn = make_flash_attention(None)
-    assert fn is flash_attention
-    # models/llama.py takes the "flash_qkv" split on this attribute.
-    assert fn.keeps_residuals
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_flash_attention(Mesh())
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    seen = []
+
+    def op(q, k, v):
+        seen.append([t.is_contiguous() for t in (q, k, v)])
+        return q
+
+    sharded = make_flash_attention(Mesh())
+    assert sharded is not flash_attention and sharded.keeps_residuals
+    monkeypatch.setattr(fa, "flash_attention", op)
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn((2, 16, 4, 16), generator=g)
+    kv = torch.randn((2, 16, 4, 16), generator=g)
+    k, v = kv[:, :, :2], kv[:, :, 2:]  # head-split views
+    assert not k.is_contiguous()
+    assert sharded(q, k, v) is q
+    assert seen == [[True, True, True]]

@@ -102,9 +102,13 @@ def _imports(path):
 
 def test_port_imports_neither_jax_nor_ray_tpu():
     files = sorted((REPO / "ray_tpu_torch").rglob("*.py"))
-    files += [REPO / "chip_smoke.py", REPO / "paged_attention_chip.py"]
+    files += [REPO / "chip_smoke.py", REPO / "paged_attention_chip.py",
+              REPO / "sharded_chip.py"]
     assert len(files) > 10
     assert REPO / "ray_tpu_torch" / "models" / "moe.py" in files
+    for name in ("mesh.py", "sharding.py", "collectives.py",
+                 "ring_attention.py", "ulysses.py"):
+        assert REPO / "ray_tpu_torch" / "parallel" / name in files
     for name in ("checkpoint.py", "dataloader.py", "memory.py"):
         assert REPO / "ray_tpu_torch" / "train" / name in files
     assert REPO / "ray_tpu_torch" / "_native" / "dataloader.py" in files
@@ -115,6 +119,23 @@ def test_port_imports_neither_jax_nor_ray_tpu():
             if top in ("jax", "jaxlib", "ray_tpu", "optax", "flax"):
                 bad.append(f"{path.relative_to(REPO)}: {mod}")
     assert not bad, bad
+
+
+def test_spawned_test_modules_import_no_jax_at_top_level():
+    """The multi-process tests' ranks import their test module: its top
+    level must not import JAX (the tests import it inside)."""
+    names = ("test_torch_parallel_train.py", "test_torch_parallel_engine.py",
+             "test_torch_sequence_parallel.py", "torch_spawn_util.py")
+    for name in names:
+        tree = ast.parse((REPO / "tests" / name).read_text())
+        for node in tree.body:
+            mods = ([a.name for a in node.names]
+                    if isinstance(node, ast.Import)
+                    else [node.module or ""]
+                    if isinstance(node, ast.ImportFrom) else [])
+            for mod in mods:
+                assert mod.split(".")[0] not in ("jax", "ray_tpu"), (name,
+                                                                    mod)
 
 
 def test_default_device_never_falls_back_to_cpu():

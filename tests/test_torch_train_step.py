@@ -173,20 +173,23 @@ def test_grad_step_leaves_params_untouched():
 
 
 def test_jit_train_step_rejects_what_is_not_ported():
-    opt = tstep.make_optimizer()
-
-    class Mesh:
-        def size(self):
-            return 8
-
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tstep.jit_train_step(CFG, opt, Mesh())
-    for impl in ("ring", "ulysses"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tstep.jit_train_step(dataclasses.replace(CFG, attn_impl=impl),
-                                 opt)
+    """An unknown attn_impl raises. Ring and Ulysses are ported: without a
+    mesh (sp = 1) each is plain causal attention, and a step through
+    either gives the dense step's loss (meshes of more than one rank:
+    tests/test_torch_parallel_train.py and
+    tests/test_torch_sequence_parallel.py)."""
+    opt = tstep.make_optimizer(warmup=1, total_steps=10)
     with pytest.raises(ValueError, match="attn_impl"):
         tstep.jit_train_step(dataclasses.replace(CFG, attn_impl="x"), opt)
+    batch = {"tokens": torch.from_numpy(_tokens()[0])}
+    losses = {}
+    for impl in ("dense", "ring", "ulysses"):
+        cfg = dataclasses.replace(CFG, attn_impl=impl)
+        state = tstep.init_train_state(cfg, opt, device="cpu")
+        _, metrics = tstep.jit_train_step(cfg, opt)(state, batch)
+        losses[impl] = float(metrics["loss"])
+    assert losses["ring"] == pytest.approx(losses["dense"], rel=1e-6)
+    assert losses["ulysses"] == pytest.approx(losses["dense"], rel=1e-6)
 
 
 def test_default_device_never_falls_back_to_cpu():
