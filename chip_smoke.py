@@ -92,6 +92,26 @@ Phase 8  the sharded path. (a) F1/F2 at a tp rank's local shapes (the
          the same steps in one process (losses within TWO_RANK_LOSS_REL,
          gradient norms within TWO_RANK_NORM_REL), with each rank's flash launches and peak
          memory beside plan_memory.
+Phase 9  two ranks on the one card over gloo (correctness only), each
+         run against the same work in one process: (a) the bench preset
+         pipelined (parallel/pipeline.py) over {"pp": 2}, 4 microbatches
+         of phase 4's 16 x 2048 batch, 12 layers per stage (flash,
+         remat "flash_qkv"), the embedding before the pipeline and the
+         final norm + chunked CE as the loss head: the loss within
+         TWO_RANK_LOSS_REL and each parameter's gradient norm within
+         TWO_RANK_NORM_REL, (M + P - 1) x 12 = 60 F1 and F2 launches per
+         rank; F1/F2 at the microbatch's shape (B=4) held to their plain
+         versions in fp32 (FLASH_ORACLE_*) and timed; (b) two bench steps
+         under {"sp": 2} with flash (the sequence gathered over sp);
+         (c) under {"tp": 2} with remat "flash_qkv_ffn8", every int8
+         value and scale the step's kept op makes (on every
+         INT8_ROW_STRIDE-th row) equal to the whole rows' quantization;
+         (d) moe_bench under {"sp": 2} with 2048-token routing groups
+         that span the ranks (MOE_LOSS_REL, MOE_AUX_REL, MOE_NORM_REL);
+         (e) phase 8b's fsdp = 2 run on
+         make_multislice_mesh({}, {"fsdp": 2}) over two one-rank fake
+         slices: step 0's loss bit for bit phase 8b's. Every phase prints
+         its seconds.
 Timing   each kernel at the main path's shapes (CUDA events, cold L2):
          its time, its plain version's, its bound (P1 also at the verify
          step's K = 4 and at batch 64, on lines of their own), and for the flash
@@ -105,8 +125,11 @@ Prints a ``{"kernels": [...]}`` line (the paged kernel twice,
 training step's, "flash_fwd_train_d64" at moe_bench's; the backward twice,
 "flash_bwd" and "flash_bwd_d64"; and the tp=2 shapes phase 8b runs,
 "paged_attention_tp2", "flash_fwd_train_tp2" and "flash_bwd_tp2", with
-both ranks' launches; each with its own launches and error; the other
-phase 8a shapes on a line of their own),
+both ranks' launches, and the pipeline's microbatch shape phase 9a runs,
+"flash_fwd_train_pp" and "flash_bwd_pp", with both ranks' launches; each
+with its own launches and error; the other phase 8a shapes on a line of
+their own; phase 9b's sp-gathered F1/F2 run at phase 4's shape, whose row
+carries phase 4's launches),
 the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero;
 without a CUDA device it exits 1 before any phase.
@@ -115,6 +138,7 @@ without a CUDA device it exits 1 before any phase.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import importlib
@@ -1656,12 +1680,14 @@ def rank_serve(seed, tp):
     return out
 
 
-def rank_train(seed, sizes, batch=16, seq=2048, steps=2):
-    """One rank of the bench preset's first ``steps`` train steps under
-    mesh ``sizes`` (None: one process, no mesh): phase 4's weights (from
-    the seed) and batch (the whole batch; the step cuts it over the data
-    axes), phase 4's optimizer with no warm-up (the first update at the
-    full learning rate)."""
+def rank_train(seed, sizes, batch=16, seq=2048, steps=2, cfg=None):
+    """One rank of the first ``steps`` train steps of ``cfg`` (by default
+    the bench preset with flash attention) under mesh ``sizes`` (axis
+    sizes for make_mesh, or a function that builds the mesh; None: one
+    process, no mesh): phase 4's weights (from the seed) and batch (the
+    whole batch; the step cuts it over the data axes), phase 4's
+    optimizer with no warm-up (the first update at the full learning
+    rate)."""
     from ray_tpu_torch.models.llama import PRESETS
     from ray_tpu_torch.parallel.mesh import make_mesh
     from ray_tpu_torch.train.step import (
@@ -1670,8 +1696,10 @@ def rank_train(seed, sizes, batch=16, seq=2048, steps=2):
         make_optimizer,
     )
 
-    cfg = dataclasses.replace(PRESETS["bench"], attn_impl="flash")
-    mesh = make_mesh(sizes) if sizes else None
+    if cfg is None:
+        cfg = dataclasses.replace(PRESETS["bench"], attn_impl="flash")
+    mesh = (sizes() if callable(sizes)
+            else make_mesh(sizes) if sizes else None)
     opt = make_optimizer(warmup=0, total_steps=1000,
                          mu_dtype=torch.bfloat16)
     state = init_train_state(cfg, opt, seed=seed, device="cuda", mesh=mesh)
@@ -1681,7 +1709,7 @@ def rank_train(seed, sizes, batch=16, seq=2048, steps=2):
         rng.integers(0, cfg.vocab_size, (batch, seq + 1))).to("cuda")}
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    losses, norms, wall = [], [], []
+    losses, norms, aux, wall = [], [], [], []
     for _ in range(steps):
         t0 = time.perf_counter()
         state, m = step(state, data)
@@ -1689,8 +1717,10 @@ def rank_train(seed, sizes, batch=16, seq=2048, steps=2):
         wall.append(time.perf_counter() - t0)
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
+        if "aux_loss" in m:
+            aux.append(float(m["aux_loss"]))
     _, f1, f2 = counts()
-    out = dict(losses=losses, norms=norms, wall=wall, f1=f1, f2=f2,
+    out = dict(losses=losses, norms=norms, aux=aux, wall=wall, f1=f1, f2=f2,
                peak=torch.cuda.max_memory_allocated())
     del state, step
     gc.collect()
@@ -1810,7 +1840,7 @@ def phase8b(seed, p4, p2_outs):
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    out = {"single": single["losses"],
+    out = {"single": single["losses"], "single_norms": single["norms"],
            "serve_launches": sv[0]["launches"] + sv[1]["launches"],
            "same_streams": sum(a == b for a, b in zip(sv[0]["outs"],
                                                        p2_outs))}
@@ -1851,6 +1881,401 @@ def phase8b(seed, p4, p2_outs):
         out[name] = dict(f1=tr[0]["f1"] + tr[1]["f1"],
                          f2=tr[0]["f2"] + tr[1]["f2"],
                          peaks=[r["peak"] for r in tr], plan=plan.total_gb,
+                         losses=tr[0]["losses"], norms=tr[0]["norms"])
+    return out
+
+
+# ------------------------------------------------------------ phase 9
+# Pipeline parallelism (9a): the bench preset's 24 layers as 2 stages of
+# 12 over pp = 2, GPipe with 4 microbatches of phase 4's 16 x 2048 batch.
+PIPE_STAGES, PIPE_MICRO = 2, 4
+# The flash kernels at the pipeline's microbatch shape (B = 16 / 4): the
+# kernels line's rows "flash_fwd_train_pp" and "flash_bwd_pp".
+PIPE_SHAPE = (16 // PIPE_MICRO, 2048)
+# 9c, remat "flash_qkv_ffn8" under tp = 2, against one process under the
+# same mode: the loss and gradient norm within phase 8b's limits (sound
+# runs read loss 1.6e-5 to 2.5e-5, gradient norms at most 6.3e-4; PERF.md
+# PR 8). Leaving the tp max of the int8 scale out moves neither beyond
+# them (loss 2.7e-5, gradient norm 9.5e-4: each rank quantizes its columns
+# more finely), so every int8 value and scale the step's kept op makes is
+# held exactly to the whole rows' quantization, on every
+# INT8_ROW_STRIDE-th row of each activation (256 of bench's 32768).
+INT8_ROW_STRIDE = 128
+# moe_bench (9d) against one process. Step 0 reads the same loss and aux
+# bits; after one full-rate update, routing near-ties that the two runs'
+# bf16 roundings (and F2's atomics) move flip: step 1 read loss 6.1e-5 to
+# 9.1e-5 relative, aux 2.5e-3 to 2.7e-3, gradient norm up to 1.1e-3
+# (three chip runs). Routing in per-rank groups where the groups span sp
+# read loss 1.7e-4 / 1.5e-3, aux 6.9e-2 / 1.0e-1 and gradient norms
+# 9.0e-3 / 3.0e-2 (steps 0 / 1; sharded_chip.py train-faults;
+# PERF.md).
+MOE_LOSS_REL = 1e-3
+MOE_AUX_REL = 1e-2
+MOE_NORM_REL = 5e-3
+
+
+def _multislice_fsdp2():
+    """9e's mesh: {"fsdp": 2} across two fake slices of one rank each."""
+    from ray_tpu_torch.parallel.mesh import (
+        fake_slice_devices,
+        make_multislice_mesh,
+    )
+
+    return make_multislice_mesh({}, {"fsdp": 2},
+                                ranks=fake_slice_devices(2))
+
+
+def phase9_runs():
+    """Phase 9's two-rank training runs: name -> (config, mesh sizes or a
+    function that builds the mesh). 9b the bench preset with flash
+    attention under sp = 2 (the sequence gathered for F1/F2); 9c the
+    bench preset under remat
+    "flash_qkv_ffn8" with tp = 2; 9d moe_bench (flash) under sp = 2 with
+    routing groups of 2048 tokens, one whole sequence, so that every group
+    spans both sp ranks (moe_bench's own 1024-token groups would lie in
+    one rank's block, the path phase 5 runs); 9e phase 8b's fsdp = 2 run
+    on a multislice mesh of two one-rank fake slices."""
+    from ray_tpu_torch.models.llama import PRESETS
+    from ray_tpu_torch.models.moe import MOE_PRESETS
+
+    bench = dataclasses.replace(PRESETS["bench"], attn_impl="flash")
+    moe = dataclasses.replace(MOE_PRESETS["moe_bench"], attn_impl="flash",
+                              group_size=2048)
+    return {
+        "sp=2": (bench, {"sp": 2}),
+        "tp=2 ffn8": (dataclasses.replace(bench, remat="flash_qkv_ffn8"),
+                      {"tp": 2}),
+        "moe sp=2": (moe, {"sp": 2}),
+        "multislice fsdp=2": (bench, _multislice_fsdp2),
+    }
+
+
+def _pipeline_inputs(seed):
+    """The bench preset (flash, remat "flash_qkv"), its fp32 weights and
+    phase 4's batch, from the seed."""
+    from ray_tpu_torch.models.llama import PRESETS, init_params
+
+    cfg = dataclasses.replace(PRESETS["bench"], attn_impl="flash")
+    params = init_params(cfg, seed, device="cuda")
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (16, 2048 + 1))).to("cuda")
+    return cfg, params, tokens
+
+
+def _pipeline_pieces(cfg, params, tokens):
+    """(embedded inputs, targets, stage_fn, loss_head) of 9a: the
+    embedding before the pipeline, a stage's layers through the port's
+    layer loop (flash attention, remat "flash_qkv"), the final norm and
+    the chunked cross entropy as the replicated loss head."""
+    from ray_tpu_torch.models.llama import apply_blocks, embed
+    from ray_tpu_torch.ops.flash_attention import flash_attention
+    from ray_tpu_torch.ops.norms import rms_norm
+    from ray_tpu_torch.ops.rope import rope_frequencies
+    from ray_tpu_torch.train.step import chunked_cross_entropy
+
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    cos, sin = rope_frequencies(cfg.head_dim, inputs.shape[1],
+                                cfg.rope_theta, device=tokens.device)
+
+    def stage_fn(p, x):
+        return apply_blocks(x, p, cos, sin, cfg, flash_attention)[0]
+
+    def loss_head(y, batch):
+        return chunked_cross_entropy(rms_norm(y, params["final_norm"]),
+                                     params["lm_head"], batch["targets"],
+                                     cfg.dtype)
+
+    return embed(params, inputs, cfg), targets, stage_fn, loss_head
+
+
+def pipeline_single(seed):
+    """9a's reference: the same 24 blocks applied in order in one process
+    on the whole batch; the loss and each parameter's gradient norm."""
+    cfg, params, tokens = _pipeline_inputs(seed)
+    leaves = _leaf_dict(params)
+    for t in leaves.values():
+        t.requires_grad_(True)
+    reset_counts()
+    t0 = time.perf_counter()
+    x, targets, stage_fn, loss_head = _pipeline_pieces(cfg, params, tokens)
+    loss = loss_head(stage_fn(params["blocks"], x), {"targets": targets})
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    sync()
+    wall = time.perf_counter() - t0
+    _, f1, f2 = counts()
+    norms = {k: float(g.float().norm()) for k, g in zip(leaves, grads)}
+    out = dict(loss=loss.item(), norms=norms, f1=f1, f2=f2, wall=wall)
+    del params, leaves, grads, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _leaf_dict(params):
+    return {"tok_emb": params["tok_emb"], "final_norm": params["final_norm"],
+            "lm_head": params["lm_head"],
+            **{"blocks/" + k: v for k, v in params["blocks"].items()}}
+
+
+def rank_pipeline(seed):
+    """One rank of 9a: ``pipeline_loss_fn`` over mesh {"pp": 2} with 4
+    microbatches; the rank holds its stage's 12 layers (DTensors placed
+    over pp, stacked [2, 12, ...]) and the embedding, final norm and
+    lm_head whole. Returns the loss, each parameter's gradient norm (a
+    stage leaf's summed over pp), the flash launches and the wall time."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel import make_mesh, mesh_spec, pipeline_loss_fn
+    from ray_tpu_torch.parallel.sharding import distribute, local
+
+    cfg, params, tokens = _pipeline_inputs(seed)
+    mesh = make_mesh({"pp": PIPE_STAGES})
+    params["blocks"] = {
+        k: distribute(v.reshape(PIPE_STAGES, -1, *v.shape[1:]), mesh,
+                      mesh_spec("pp"))
+        for k, v in params["blocks"].items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    leaves = _leaf_dict(params)
+    for t in leaves.values():
+        t.requires_grad_(True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    x, targets, stage_fn, loss_head = _pipeline_pieces(cfg, params, tokens)
+    loss = pipeline_loss_fn(params["blocks"],
+                            {"inputs": x, "targets": targets}, stage_fn,
+                            loss_head, mesh=mesh,
+                            num_microbatches=PIPE_MICRO)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    sync()
+    wall = time.perf_counter() - t0
+    _, f1, f2 = counts()
+    norms = {}
+    for k, g in zip(leaves, grads):
+        sq = local(g).float().square().sum()
+        if k.startswith("blocks/"):
+            dist.all_reduce(sq, group=mesh.get_group("pp"))
+        norms[k] = float(sq.sqrt())
+    out = dict(loss=loss.item(), norms=norms, f1=f1, f2=f2, wall=wall,
+               peak=torch.cuda.max_memory_allocated())
+    del params, leaves, grads, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def int8_recorded():
+    """Within: every quantization the int8 op of "flash_qkv_ffn8" makes
+    (models/llama.py's ``_int8_ckpt_op``, through ``quantize_int8``)
+    appends to the yielded list this rank's columns of every
+    ``INT8_ROW_STRIDE``-th row of its activation, with their int8 values
+    and scales as the op returned them."""
+    from ray_tpu_torch.models import llama
+
+    real, calls = llama.quantize_int8, []
+
+    def record(x, mesh=None):
+        q, scale = real(x, mesh)
+        calls.append(tuple(t.reshape(-1, t.shape[-1])[::INT8_ROW_STRIDE]
+                           .clone(memory_format=torch.contiguous_format)
+                           for t in (x, q, scale)))
+        return q, scale
+
+    llama.quantize_int8 = record
+    try:
+        yield calls
+    finally:
+        llama.quantize_int8 = real
+
+
+def int8_mismatches(calls):
+    """How many recorded int8 values and scales differ from the whole
+    rows' quantization: each recorded block gathered over the two ranks
+    (mesh {"tp": 2}: rank r holds columns block r), quantized with no
+    mesh, this rank's columns kept."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models.llama import quantize_int8
+
+    rank, bad = dist.get_rank(), 0
+    for x, q, scale in calls:
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
+        dist.all_gather(parts, x)
+        want_q, want_scale = quantize_int8(torch.cat(parts, -1))
+        bad += int((want_q.chunk(len(parts), -1)[rank] != q).sum()
+                   + (want_scale != scale).sum())
+    return bad
+
+
+def rank_phase9(seed, name):
+    """One rank of one phase 9 run: "pipeline" (9a) or a name of
+    :func:`phase9_runs`; under "tp=2 ffn8" with the int8 op's
+    quantizations of both steps held to the whole rows'
+    (:func:`int8_mismatches`)."""
+    if name == "pipeline":
+        return rank_pipeline(seed)
+    cfg, sizes = phase9_runs()[name]
+    if name != "tp=2 ffn8":
+        return rank_train(seed, sizes, cfg=cfg)
+    with int8_recorded() as calls:
+        out = rank_train(seed, sizes, cfg=cfg)
+    out["int8"] = dict(calls=len(calls), bad=int8_mismatches(calls),
+                       values=sum(q.numel() + s.numel() for _, q, s in calls))
+    return out
+
+
+def phase9_single(seed, name):
+    """The one-process run a phase 9 run is held to."""
+    if name == "pipeline":
+        return pipeline_single(seed)
+    cfg, _ = phase9_runs()[name]
+    return rank_train(seed, None, cfg=cfg)
+
+
+PHASE9_NAMES = ("pipeline", "sp=2", "tp=2 ffn8", "moe sp=2",
+                "multislice fsdp=2")
+
+
+def _phase9_work(seed):
+    return {name: rank_phase9(seed, name) for name in PHASE9_NAMES}
+
+
+def _rel(got, want):
+    """|got / want - 1|, infinite for a NaN or an infinity."""
+    return abs(got / want - 1) if math.isfinite(got) else math.inf
+
+
+def phase9_readings(name, rank, single):
+    """(text, ok): one rank's phase 9 run against its one-process run, at
+    phase 9's limits. The pipeline: the loss within TWO_RANK_LOSS_REL and
+    each parameter's gradient norm within TWO_RANK_NORM_REL; a training
+    run: each step's loss (and MoE aux loss) within TWO_RANK_LOSS_REL
+    (MOE_LOSS_REL for MoE, its aux loss within MOE_AUX_REL), each gradient
+    norm within TWO_RANK_NORM_REL (MOE_NORM_REL for MoE); under
+    "flash_qkv_ffn8" also the int8 op's quantizations: two per layer and
+    step, no recorded value differing from the whole rows'."""
+    if name == "pipeline":
+        loss = _rel(rank["loss"], single["loss"])
+        norms = {k: _rel(v, single["norms"][k])
+                 for k, v in rank["norms"].items()}
+        worst = max(norms, key=norms.get)
+        return (f"loss {rank['loss']:.6f} (one process {single['loss']:.6f}"
+                f", rel {loss:.2e}, limit {TWO_RANK_LOSS_REL}); gradient "
+                f"norms rel at most {norms[worst]:.2e} ({worst}, limit "
+                f"{TWO_RANK_NORM_REL})",
+                loss <= TWO_RANK_LOSS_REL
+                and norms[worst] <= TWO_RANK_NORM_REL)
+    loss_limit = MOE_LOSS_REL if name == "moe sp=2" else TWO_RANK_LOSS_REL
+    norm_limit = MOE_NORM_REL if name == "moe sp=2" else TWO_RANK_NORM_REL
+    loss = [_rel(a, b) for a, b in zip(rank["losses"], single["losses"])]
+    aux = [_rel(a, b) for a, b in zip(rank["aux"], single["aux"])]
+    norm = [_rel(a, b) for a, b in zip(rank["norms"], single["norms"])]
+    text = (f"losses {rank['losses']} (one process {single['losses']}, rel "
+            + ", ".join(f"{x:.2e}" for x in loss) + f", limit {loss_limit})"
+            + (f"; aux {rank['aux']} (rel "
+               + ", ".join(f"{x:.2e}" for x in aux)
+               + f", limit {MOE_AUX_REL})" if aux else "")
+            + "; grad_norms rel " + ", ".join(f"{x:.2e}" for x in norm)
+            + f" (limit {norm_limit})")
+    ok = (max(loss) <= loss_limit and max(aux, default=0.0) <= MOE_AUX_REL
+          and max(norm) <= norm_limit)
+    if "int8" in rank:
+        q8 = rank["int8"]
+        want = 2 * phase9_runs()[name][0].n_layers * len(rank["losses"])
+        text += (f"; int8 op: {q8['calls']} quantizations (expected "
+                 f"{want}), {q8['bad']} of {q8['values']} recorded values "
+                 f"and scales differ from the whole rows' (limit 0)")
+        ok = ok and q8["calls"] == want and q8["bad"] == 0
+    return text, ok
+
+
+def phase9(seed, p8):
+    """Two ranks on the one card over gloo (correctness only): (a) the
+    bench preset pipelined over pp = 2, (b) under sp = 2 with flash, (c)
+    under tp = 2 with remat "flash_qkv_ffn8", its int8 op held exact,
+    (d) moe_bench under sp = 2 with groups spanning the ranks, (e) phase
+    8b's fsdp = 2 run on a multislice mesh; each against one process."""
+    print("phase 9: pipeline, sequence-gathered attention, int8 under tp, "
+          "MoE under sp, multislice (two ranks over gloo, correctness "
+          "only)")
+    b, s = PIPE_SHAPE
+    print(f"  the flash kernels at the pipeline's microbatch shape: B={b} "
+          f"S={s}, heads {BENCH_HEADS[0]}/{BENCH_HEADS[1]} of "
+          f"{BENCH_HEADS[2]}")
+    errs = flash_bwd_checks({torch.bfloat16: FLASH_BF16_TOL},
+                            heads=BENCH_HEADS, shapes=(PIPE_SHAPE,),
+                            dtypes=(torch.bfloat16,), train=PIPE_SHAPE,
+                            tag="_pp", oracle=True)
+    rows = timing_training(heads_cfg(BENCH_HEADS), errs, batch=b, seq=s,
+                           tag="_pp")
+    single = {"sp=2": dict(losses=p8["single"], norms=p8["single_norms"],
+                           aux=[])}
+    for name in ("pipeline", "tp=2 ffn8", "moe sp=2"):
+        t0 = time.time()
+        single[name] = phase9_single(seed, name)
+        print(f"  {name} in one process ({time.time() - t0:.1f} s): "
+              + (f"loss {single[name]['loss']:.6f}, flash launches "
+                 f"{single[name]['f1']} + {single[name]['f2']}"
+                 if name == "pipeline" else
+                 f"losses {single[name]['losses']}, grad_norms "
+                 f"{single[name]['norms']}"))
+    t0 = time.time()
+    ranks = run_two_ranks(_phase9_work, (seed,))
+    runs = phase9_runs()
+    print(f"  two ranks ran in {time.time() - t0:.1f} s")
+    out = {}
+    pipe = [r["pipeline"] for r in ranks]
+    n_steps = PIPE_MICRO + PIPE_STAGES - 1
+    per_stage = runs["sp=2"][0].n_layers // PIPE_STAGES
+    for i, r in enumerate(pipe):
+        text, ok = phase9_readings("pipeline", r, single["pipeline"])
+        print(f"  9a pipeline pp=2 M={PIPE_MICRO}, rank {i}: {text}; flash "
+              f"launches {r['f1']} + {r['f2']}, {r['wall']:.2f} s (gloo), "
+              f"peak {r['peak'] / 2**30:.2f} GiB")
+        check(ok, f"9a: rank {i}'s pipelined loss or a gradient norm is off "
+                  f"the one-process run's")
+        # remat "flash_qkv" keeps the flash outputs: no forward replay.
+        want = n_steps * per_stage
+        check(r["f1"] == want and r["f2"] == want,
+              f"9a: rank {i} launched F1 {r['f1']} and F2 {r['f2']} times, "
+              f"expected (M + P - 1) x {per_stage} = {want} each")
+    out["pipeline"] = dict(f1=sum(r["f1"] for r in pipe),
+                           f2=sum(r["f2"] for r in pipe),
+                           loss=pipe[0]["loss"], rows=rows)
+    for name, (cfg, _) in runs.items():
+        tr = [r[name] for r in ranks]
+        check(tr[0]["losses"] == tr[1]["losses"]
+              and tr[0]["norms"] == tr[1]["norms"],
+              f"{name}: the ranks report different losses")
+        want_single = (single[name] if name in single
+                       else dict(losses=p8["fsdp=2"]["losses"],
+                                 norms=p8["fsdp=2"]["norms"], aux=[]))
+        if name == "multislice fsdp=2":
+            # The same program on the same layout as phase 8b's flat
+            # fsdp = 2: step 0 bit for bit; step 1 follows an update whose
+            # dq F2 sums with atomics (not bit-reproducible run to run).
+            check(tr[0]["losses"][0] == p8["fsdp=2"]["losses"][0],
+                  f"9e: step 0 loss {tr[0]['losses'][0]!r} is not phase "
+                  f"8b's flat fsdp=2 {p8['fsdp=2']['losses'][0]!r}")
+        readings = [phase9_readings(name, r, want_single) for r in tr]
+        print(f"  9{'bcde'[list(runs).index(name)]} {name}: "
+              f"{readings[0][0]}; {tr[0]['wall'][0]:.2f} + "
+              f"{tr[0]['wall'][1]:.2f} s (gloo), flash launches "
+              f"{tr[0]['f1']} + {tr[0]['f2']} per rank")
+        bad = [f"rank {i}: {text}" for i, (text, ok) in enumerate(readings)
+               if not ok]
+        check(not bad, f"{name}: off the one-process run's: {bad}")
+        per_step = (F1_PER_LAYER[cfg.remat] * cfg.n_layers, cfg.n_layers)
+        check(all(r["f1"] == 2 * per_step[0] and r["f2"] == 2 * per_step[1]
+                  for r in tr),
+              f"{name}: a rank launched F1 {tr[0]['f1']} / {tr[1]['f1']} and "
+              f"F2 {tr[0]['f2']} / {tr[1]['f2']} times in two steps, "
+              f"expected {2 * per_step[0]} and {2 * per_step[1]}")
+        out[name] = dict(f1=tr[0]["f1"] + tr[1]["f1"],
+                         f2=tr[0]["f2"] + tr[1]["f2"],
                          losses=tr[0]["losses"])
     return out
 
@@ -2047,6 +2472,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.time()
+    laps = [t_start]
+
+    def lap(label):
+        laps.append(time.time())
+        print(f"{label} took {laps[-1] - laps[-2]:.1f} s")
+
     card = card_line()
     print(f"phase 0: card {card}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
@@ -2055,8 +2486,10 @@ def main() -> int:
     print(f"  kernels built in {time.time() - t0:.1f} s")
     for name, log in logs.items():
         print(f"  {name}: " + "; ".join(ptxas_summary(log)))
+    lap("phase 0")
 
     errs = phase1()
+    lap("phase 1")
 
     cfg = PRESETS["llama3_8b"]
     t0 = time.time()
@@ -2091,25 +2524,34 @@ def main() -> int:
               f"TTFT mean {a['ttft_s_mean']:.3f} s, max "
               f"{a['ttft_s_max']:.3f} s (8 prompts admitted in one step); "
               f"dense 1024-token TTFT {b['ttft_s']:.3f} s [{card}]")
+    lap("phases 2-3 and their kernel timing")
 
     # The serving models go before the trainer's state comes.
     p4 = phase4(args.seed)
     rows.update(timing_training(p4["cfg"], errs))
     gc.collect()
     torch.cuda.empty_cache()
+    lap("phase 4")
     p5 = phase5(args.seed)
     rows.update(timing_training(p5["cfg"], errs, tag="_d64"))
     gc.collect()
     torch.cuda.empty_cache()
+    lap("phase 5")
     p6 = phase6(args.seed)
     gc.collect()
     torch.cuda.empty_cache()
+    lap("phase 6")
     p7 = phase7(args.seed)
     plans = planner_checks(p4, p6, p7)
     gc.collect()
     torch.cuda.empty_cache()
+    lap("phase 7")
     tp_rows = phase8a(p2["first_positions"])
+    lap("phase 8a")
     p8 = phase8b(args.seed, p4, p2["outs"])
+    lap("phase 8b")
+    p9 = phase9(args.seed, p8)
+    lap("phase 9")
     prof = p4["profile"]
     print(f"train: {p4['tokens_per_s']:.1f} tokens/s, "
           f"{p4['peak_share']:.2%} of dense bf16 peak, step "
@@ -2156,7 +2598,16 @@ def main() -> int:
           f"{p8['same_streams']} of 8; bench losses fsdp=2 "
           f"{p8['fsdp=2']['losses']}, tp=2 {p8['tp=2']['losses']}, one "
           f"process {p8['single']} [{card}]")
+    print(f"phase 9, two ranks on one card over gloo (correctness only): "
+          f"pipeline pp=2 loss {p9['pipeline']['loss']:.6f}; sp=2 losses "
+          f"{p9['sp=2']['losses']}; tp=2 flash_qkv_ffn8 "
+          f"{p9['tp=2 ffn8']['losses']}; moe_bench sp=2 "
+          f"{p9['moe sp=2']['losses']}; multislice fsdp=2 "
+          f"{p9['multislice fsdp=2']['losses']}; sp=2 flash launches "
+          f"{p9['sp=2']['f1']} + {p9['sp=2']['f2']} (both ranks, phase 4's "
+          f"shape) [{card}]")
     rows.update({k: tp_rows[k] for k in TP_MAIN_ROWS})
+    rows.update(p9["pipeline"]["rows"])
     print(f"run took {time.time() - t_start:.1f} s")
     # One row per kernel and main-path shape: the forward kernel runs in
     # the dense prefill (phase 3) and in training (phase 4).
@@ -2169,7 +2620,9 @@ def main() -> int:
                 "flash_bwd_d64": p5["f2_launches"],
                 "paged_attention_tp2": p8["serve_launches"],
                 "flash_fwd_train_tp2": p8["tp=2"]["f1"],
-                "flash_bwd_tp2": p8["tp=2"]["f2"]}
+                "flash_bwd_tp2": p8["tp=2"]["f2"],
+                "flash_fwd_train_pp": p9["pipeline"]["f1"],
+                "flash_bwd_pp": p9["pipeline"]["f2"]}
     fwd = ("ray_tpu_torch/csrc/flash_fwd.cu",
            "ray_tpu/ops/pallas/flash_attention.py:48")
     paged = ("ray_tpu_torch/csrc/paged_attention.cu",
@@ -2187,6 +2640,8 @@ def main() -> int:
     meta["paged_attention_tp2"] = paged
     meta["flash_fwd_train_tp2"] = fwd
     meta["flash_bwd_tp2"] = meta["flash_bwd"]
+    meta["flash_fwd_train_pp"] = fwd
+    meta["flash_bwd_pp"] = meta["flash_bwd"]
     check(rows.keys() == meta.keys(),
           f"timed rows {sorted(rows)} are not the kernels {sorted(meta)}")
     kernels = [

@@ -83,6 +83,7 @@ from ray_tpu_torch.parallel.sharding import (
     local,
     logical_spec,
     mesh_scope,
+    sequence_gathered,
 )
 
 Params = dict[str, Any]
@@ -420,11 +421,18 @@ def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
     return torch.ops.ray_tpu_torch.checkpoint_name(x, name)
 
 
-def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_int8(x: torch.Tensor, mesh=None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """(q int8, scale fp32 [..., 1]) of the reference's ``_int8_ckpt``:
     scale = max|x| / 127 + 1e-12 per row in fp32, q = round(x / scale)
-    (half to even, as ``jnp.round``) clipped to [-127, 127]."""
-    scale = x.abs().amax(-1, keepdim=True).float() / 127.0 + 1e-12
+    (half to even, as ``jnp.round``) clipped to [-127, 127]. Under a
+    ``mesh`` whose tp splits the rows' last dim (this rank's columns of
+    the FFN's hidden dim), a row's max is over all of it: the local max,
+    then the max over tp."""
+    amax = x.abs().amax(-1, keepdim=True).float()
+    if mesh is not None and axis_size(mesh, "tp") > 1:
+        amax = col.all_max(amax, mesh, "tp")
+    scale = amax / 127.0 + 1e-12
     q = torch.clamp(torch.round(x.float() / scale), -127, 127)
     return q.to(torch.int8), scale
 
@@ -432,7 +440,9 @@ def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 @torch.library.custom_op("ray_tpu_torch::int8_ckpt", mutates_args=())
 def _int8_ckpt_op(x: torch.Tensor, w: torch.Tensor | None,
                   name: str) -> tuple[torch.Tensor, torch.Tensor]:
-    return quantize_int8(x if w is None else x @ w)
+    # The tp max runs inside the op a policy keeps, so a replay reads the
+    # kept int8 and scale and issues no collective.
+    return quantize_int8(x if w is None else x @ w, active_mesh())
 
 
 class _Int8Ckpt(torch.autograd.Function):
@@ -565,19 +575,15 @@ def _dense_ffn(h: torch.Tensor, p: Params, cfg: LlamaConfig):
 def _dense_ffn_q8(h: torch.Tensor, p: Params, cfg: LlamaConfig):
     """FFN whose gate-pre and up activations cross the remat boundary as
     int8 + a per-row fp32 scale (:func:`_int8_ckpt` of each product): the
-    replay recomputes neither product and keeps no bf16 copy."""
+    replay recomputes neither product and keeps no bf16 copy. Under tp
+    each rank quantizes its columns with the rows' scales over all of
+    d_ff (:func:`quantize_int8`)."""
     dt = cfg.dtype
-    mesh = active_mesh()
-    if mesh is not None and axis_size(mesh, "tp") > 1:
-        # A row's int8 scale is its max over all of d_ff: under tp it
-        # would need a max over tp inside the kept op.
-        raise NotImplementedError(
-            "remat 'flash_qkv_ffn8' under tp > 1 is not ported "
-            "(ROADMAP.md, Queue 1)")
+    h = _tp_in(h)
     gate_pre = _int8_ckpt(h, "ffn_gate", p["w_gate"].to(dt))
     up = _int8_ckpt(h, "ffn_up", p["w_up"].to(dt))
     aux = h.new_zeros((), dtype=torch.float32)
-    return (F.silu(gate_pre) * up) @ p["w_down"].to(dt), aux
+    return _tp_out((F.silu(gate_pre) * up) @ p["w_down"].to(dt)), aux
 
 
 def _block(x, p, cos, sin, cfg: LlamaConfig, attn_fn: AttnFn, ffn_fn: FfnFn,
@@ -620,6 +626,40 @@ def _local_tokens(tokens: torch.Tensor, mesh):
     return tokens, axis_index(mesh, "sp") * tokens.shape[1], seq
 
 
+def apply_blocks(x, blocks: Params, cos, sin, cfg: LlamaConfig,
+                 attn_fn: AttnFn | None = None, ffn_fn: FfnFn | None = None,
+                 axes: Params | None = None):
+    """The layer loop: ``x`` [B, S, d] through the stacked layers of
+    ``blocks`` (leaves [L, ...], L their leading dim) under ``cfg.remat``,
+    each layer one checkpoint region (module docstring). Returns (x, the
+    summed aux loss). ``attn_fn`` defaults to the plain causal attention,
+    ``ffn_fn`` to the dense FFN (:func:`_dense_ffn_q8` under
+    "flash_qkv_ffn8"). Under a mesh ``axes`` places each layer's shards
+    (:func:`_block`). A pipeline stage runs its own layers through this
+    (parallel/pipeline.py)."""
+    attn_fn = attn_fn or causal_attention
+    ffn_fn = ffn_fn or _dense_ffn
+    if ffn_fn is _dense_ffn and cfg.remat == "flash_qkv_ffn8":
+        ffn_fn = _dense_ffn_q8
+    contexts = _remat_contexts(cfg.remat)
+    aux_total = x.new_zeros((), dtype=torch.float32)
+    # One unbind per stacked leaf: its backward stacks the layers' grads
+    # once, where indexing would build a full-size grad per layer.
+    layers = {k: v.unbind(0) for k, v in blocks.items()}
+    scope = current_scope()
+    for i in range(len(next(iter(layers.values())))):
+        p = {k: v[i] for k, v in layers.items()}
+        if cfg.remat == "none":
+            x, aux = _block(x, p, cos, sin, cfg, attn_fn, ffn_fn, axes, scope)
+        else:
+            kw = {} if contexts is None else {"context_fn": contexts}
+            x, aux = checkpoint(_block, x, p, cos, sin, cfg, attn_fn, ffn_fn,
+                                axes, scope, use_reentrant=False,
+                                preserve_rng_state=False, **kw)
+        aux_total = aux_total + aux
+    return x, aux_total
+
+
 def forward_with_aux(
     params: Params,
     tokens: torch.Tensor,
@@ -645,26 +685,24 @@ def forward_with_aux(
     come back as a DTensor placed by ("batch", "act_seq", None); the aux
     loss is its mean over the data ranks. Each rank computes on its
     shards, states its collectives, and runs ``attn_fn`` on its local
-    batch and heads; with sp > 1, on its sequence block, which only an
+    batch and heads. With sp > 1 each rank holds a sequence block: an
     attention that passes blocks between ranks (``seq_sharded``: ring,
-    Ulysses) takes.
+    Ulysses) takes it as it is; any other (dense, flash) runs on the whole
+    sequence, gathered over sp, and each rank keeps its rows
+    (:func:`~ray_tpu_torch.parallel.sharding.sequence_gathered`: what the
+    reference's partitioner does for dense and flash attention).
     """
     if cfg.remat not in REMAT_MODES:
         raise ValueError(f"unknown remat {cfg.remat!r}")
     attn_fn = attn_fn or causal_attention
     ffn_fn = ffn_fn or _dense_ffn
-    if ffn_fn is _dense_ffn and cfg.remat == "flash_qkv_ffn8":
-        ffn_fn = _dense_ffn_q8
-    contexts = _remat_contexts(cfg.remat)
     mesh = active_mesh()
     block_axes = None
     offset, seq = 0, tokens.shape[1]
     if mesh is not None:
         if axis_size(mesh, "sp") > 1 and not getattr(attn_fn, "seq_sharded",
                                                      False):
-            raise ValueError("sp > 1 needs an attention that passes "
-                             "sequence blocks between ranks (attn_impl "
-                             "'ring' or 'ulysses')")
+            attn_fn = sequence_gathered(attn_fn, mesh)
         axes = getattr(ffn_fn, "param_axes", param_logical_axes)(cfg)
         block_axes = {n: a[1:] for n, a in axes["blocks"].items()}
         tokens, offset, seq = _local_tokens(tokens, mesh)
@@ -677,22 +715,8 @@ def forward_with_aux(
     )
     cos, sin = (t[offset:offset + tokens.shape[1]] for t in (cos, sin))
     x = embed(params, tokens, cfg)
-    aux_total = x.new_zeros((), dtype=torch.float32)
-    # One unbind per stacked leaf: its backward stacks the layers' grads
-    # once, where indexing would build a full-size grad per layer.
-    layers = {k: v.unbind(0) for k, v in params["blocks"].items()}
-    scope = current_scope()
-    for i in range(cfg.n_layers):
-        p = {k: v[i] for k, v in layers.items()}
-        if cfg.remat == "none":
-            x, aux = _block(x, p, cos, sin, cfg, attn_fn, ffn_fn, block_axes,
-                            scope)
-        else:
-            kw = {} if contexts is None else {"context_fn": contexts}
-            x, aux = checkpoint(_block, x, p, cos, sin, cfg, attn_fn, ffn_fn,
-                                block_axes, scope, use_reentrant=False,
-                                preserve_rng_state=False, **kw)
-        aux_total = aux_total + aux
+    x, aux_total = apply_blocks(x, params["blocks"], cos, sin, cfg, attn_fn,
+                                ffn_fn, block_axes)
     if return_hidden:
         out = rms_norm(x, params["final_norm"])
     else:

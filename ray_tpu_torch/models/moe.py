@@ -15,9 +15,9 @@ places the experts' work by two ``constrain``s on the expert dim; here the
 activations are plain local tensors and each ep rank runs its own experts
 on the tokens routed to them, and the combine is summed over ep. Routing groups are cut from the whole batch, as the reference's
 reshape of the global tokens cuts them; when a group would span ranks
-(``g`` does not divide a rank's tokens) the tokens are gathered over the
-data axes first and every data rank routes the whole batch, keeping its
-own rows of the output.
+(``g`` does not divide a rank's tokens, or under sp its sequence block)
+the tokens are gathered over the data axes and sp first and every rank
+routes the whole batch, keeping its own rows of the output.
 
 Where the reference builds one-hot dispatch and combine tensors
 ([G, g, e, capacity], 335 MB each in fp32 at moe_bench, batch 16 x 2048)
@@ -156,16 +156,19 @@ def moe_ffn(x: torch.Tensor, p: Params, cfg: MoEConfig):
     mesh = active_mesh()
     if mesh is None:
         return _moe_ffn(x, p, cfg, None)
-    if axis_size(mesh, "sp") > 1:
-        raise NotImplementedError("MoE under sp > 1 is not ported")
     data = ("dp", "fsdp")
     b, s, d = x.shape
-    n_data = col.group_size(mesh, data)
-    if b * s % group_size(b * s * n_data, cfg) == 0:
+    n_sp = axis_size(mesh, "sp")
+    g = group_size(b * s * col.group_size(mesh, data) * n_sp, cfg)
+    # Under sp a rank holds a block of each of its sequences: its groups
+    # are the reference's only if every group lies in one block.
+    if (s % g if n_sp > 1 else b * s % g) == 0:
         return _moe_ffn(x, p, cfg, mesh)
     # A routing group spans ranks: route the whole batch on every rank.
-    out, aux = _moe_ffn(col.all_gather(x, mesh, data, 0), p, cfg, mesh)
-    return col.local_chunk(out, mesh, data, 0), aux
+    whole = col.all_gather(col.all_gather(x, mesh, data, 0), mesh, "sp", 1)
+    out, aux = _moe_ffn(whole, p, cfg, mesh)
+    return col.local_chunk(col.local_chunk(out, mesh, "sp", 1), mesh, data,
+                           0), aux
 
 
 def _moe_ffn(x: torch.Tensor, p: Params, cfg: MoEConfig, mesh):

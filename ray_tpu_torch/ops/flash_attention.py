@@ -345,14 +345,15 @@ def make_flash_attention(mesh=None, batch_axes=("dp", "fsdp"),
     ``make_flash_attention``, which runs the kernel per shard under
     ``shard_map``). Without a mesh, or on one of one rank:
     :func:`flash_attention`. Under a larger mesh: batch sharded over
-    ``batch_axes``, heads over ``head_axis``, the sequence local; each rank
-    runs F1 forward and F2 backward on its own [B / (dp fsdp), S, H / tp,
-    D] through the same registered op. DTensor inputs are redistributed to
-    those placements and the output is a DTensor with them; plain tensors
-    are taken as this rank's shards already (what the model hands it
-    under ``use_mesh``). A local shard of a head-split view need not be
-    contiguous, and the kernels take contiguous k and v: each shard is
-    made contiguous here."""
+    ``batch_axes``, heads over ``head_axis``, the sequence whole; each
+    rank runs F1 forward and F2 backward on its own [B / (dp fsdp), S,
+    H / tp, D] through the same registered op. DTensor inputs are
+    redistributed to those placements and the output is a DTensor with
+    them; plain tensors are taken as this rank's shards already (what the
+    model hands it under ``use_mesh``; under sp > 1 the model gathers each
+    rank's sequence block for it, models/llama.py ``forward_with_aux``). A
+    local shard of a head-split view need not be contiguous, and the
+    kernels take contiguous k and v: each shard is made contiguous here."""
     if mesh_size(mesh) == 1:
         return flash_attention
     sharded = per_shard(

@@ -16,9 +16,11 @@ function            forward                   backward
 :func:`copy_to`     identity                  all-reduce (sum)
 :func:`reduce_from` all-reduce (sum or mean)  identity (times 1/n: mean)
 :func:`gather_from` all-gather along ``dim``  this rank's slice
+:func:`scatter_to`  this rank's slice         all-gather along ``dim``
 :func:`all_gather`  all-gather along ``dim``  reduce-scatter (sum)
 :func:`all_to_all`  all-to-all                all-to-all back
 :func:`ring_shift`  rank i's tensor to i + 1  gradient to i - 1
+:func:`all_max`     all-reduce (max)          none (not differentiable)
 ==================  ========================  ==========================
 
 A tensor that every rank of an axis holds whole is either *replicated*
@@ -157,6 +159,17 @@ class _GatherFrom(torch.autograd.Function):
                 None, None, None)
 
 
+class _ScatterTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return local_chunk(x, mesh, axes, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.mesh, ctx.axes, ctx.dim), None, None, None
+
+
 class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axes, dim):
@@ -194,6 +207,25 @@ def gather_from(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
     slice of it."""
     axes = _axes(mesh, axes)
     return _GatherFrom.apply(x, mesh, axes, dim) if axes else x
+
+
+def scatter_to(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """This rank's slice of ``x`` (the same on every rank of ``axes``)
+    along ``dim``; the gradients of the slices are gathered back, so the
+    gradient of the whole is replicated (the adjoint of
+    :func:`gather_from`)."""
+    axes = _axes(mesh, axes)
+    return _ScatterTo.apply(x, mesh, axes, dim) if axes else x
+
+
+def all_max(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The elementwise max of ``x`` over ``axes`` (``jax.lax.pmax``),
+    detached: it carries no gradient."""
+    axes = _axes(mesh, axes)
+    y = x.detach().contiguous().clone()
+    for a in axes:
+        dist.all_reduce(y, op=dist.ReduceOp.MAX, group=mesh.get_group(a))
+    return y
 
 
 def all_gather(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:

@@ -300,3 +300,24 @@ def per_shard(kernel, mesh, batch_axes=("dp", "fsdp"), seq_axis=None,
                                   run_check=False)
 
     return attn
+
+
+def sequence_gathered(kernel, mesh):
+    """``kernel`` (q, k, v -> o over whole sequences) as an attention
+    function over this rank's sequence block along sp: q, k and v
+    [B, S / sp, H, D] are gathered along the sequence (``all_gather``: the
+    gradient each rank computes of the whole comes only from its own
+    output rows, so it is summed over the ranks and scattered back), the
+    kernel runs on the whole sequence on every rank, and each rank keeps
+    its own rows of the output. The reference's ``shard_map`` spec
+    ``P(batch, None, tp, None)`` does the same for its flash kernel, and
+    its partitioner for the dense attention, when the activations are
+    split over sp."""
+
+    def attn(q, k, v):
+        q, k, v = (col.all_gather(t, mesh, "sp", 1) for t in (q, k, v))
+        return col.local_chunk(kernel(q, k, v), mesh, "sp", 1)
+
+    attn.seq_sharded = True
+    attn.keeps_residuals = getattr(kernel, "keeps_residuals", False)
+    return attn

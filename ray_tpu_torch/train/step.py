@@ -21,8 +21,12 @@ the parameters and both AdamW moments are DTensors placed by
 on ``batch``, each rank computes on its shards (weights sharded over fsdp
 gathered at use: ZeRO-3), each gradient arrives reduced over the data
 axes with its parameter's placements, :func:`global_norm` is the norm of
-the whole tensors, and AdamW updates the local shards. The device-memory
-ledger claims are not ported (ROADMAP.md, Queue 1).
+the whole tensors, and AdamW updates the local shards. On a mesh with
+pp > 1 every pp rank runs the same step: the Llama leaves carry
+"layers", not "stage", so they and the batch are replicated over pp, as
+under the reference's partitioner (a pipelined step goes through
+parallel/pipeline.py). The device-memory ledger claims are not ported
+(ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations

@@ -26,12 +26,17 @@ chip_smoke.py's limits (FLASH_ORACLE_TOL / _NORM, PAGED_ORACLE_TOL /
 _NORM) at any layout, or if a sound kernel fails them.
 
 ``train-faults`` runs phase 8b's two-rank bench steps (chip_smoke.
-rank_train) under {"fsdp": 2} and {"tp": 2}, sound and with a planted
-fault (a reduce-scatter of fsdp gradients, the tp sum of activations or the
-tp sum of gradients left out, patched in the ranks at run time), against
-the same steps in one process, and exits non-zero if a fault stays within
-chip_smoke.TWO_RANK_LOSS_REL and TWO_RANK_NORM_REL or a sound run does
-not.
+rank_train) under {"fsdp": 2} and {"tp": 2} and phase 9's runs
+(chip_smoke.rank_phase9: the pipeline, the steps under tp = 2 with
+"flash_qkv_ffn8" and their int8 quantizations, moe_bench under sp = 2,
+bench under sp = 2, the multislice fsdp = 2 steps), sound and
+with a planted fault patched in the ranks at run time (fsdp's gradient
+reduce-scatter, the tp sum of activations or of gradients, the pipeline's
+ring shift or its sum of the outputs over pp, the tp max of the int8
+scale left out; MoE routed in per-rank groups where the reference's span
+the sp ranks), against the same work in one process, and exits non-zero
+if a fault passes every limit of its phase (chip_smoke.TWO_RANK_LOSS_REL,
+TWO_RANK_NORM_REL, phase9_readings) or a sound run fails one.
 
 The sources in the checkout are never changed. Each exits 1 without a
 CUDA device.
@@ -43,7 +48,6 @@ import argparse
 import contextlib
 import ctypes
 import importlib
-import math
 import os
 import subprocess
 import sys
@@ -306,34 +310,81 @@ def _no_reduce_scatter(x, mesh, axes, dim):
     return col.local_chunk(x, mesh, axes, dim).contiguous()
 
 
-# (module, attribute, replacement) of each planted fault.
+def _no_pp_sum(real):
+    """collectives.reduce_from with the sum over pp left out (the
+    pipeline's outputs stay on the last stage)."""
+
+    def reduce_from(x, mesh, axes, mean=False):
+        return x if axes == "pp" else real(x, mesh, axes, mean)
+
+    return reduce_from
+
+
+def _per_rank_groups(real):
+    """moe_ffn that routes each rank's own tokens in groups cut from them,
+    whether or not the reference's groups span ranks."""
+    from ray_tpu_torch.models import moe
+    from ray_tpu_torch.parallel.sharding import active_mesh
+
+    def moe_ffn(x, p, cfg):
+        return moe._moe_ffn(x, p, cfg, active_mesh())
+
+    moe_ffn.param_axes = real.param_axes
+    return moe_ffn
+
+
+# fault -> (module, attribute, a function of the real attribute that
+# returns the faulty one).
 TRAIN_FAULTS = {
     "fsdp gradient reduce-scatter left out": (
         "ray_tpu_torch.parallel.collectives", "_reduce_scatter",
-        _no_reduce_scatter),
+        lambda real: _no_reduce_scatter),
     "tp sum of activations left out": (
-        "ray_tpu_torch.models.llama", "_tp_out", lambda x: x),
+        "ray_tpu_torch.models.llama", "_tp_out", lambda real: lambda x: x),
     "tp sum of gradients left out": (
-        "ray_tpu_torch.models.llama", "_tp_in", lambda x: x),
+        "ray_tpu_torch.models.llama", "_tp_in", lambda real: lambda x: x),
+    "pipeline ring shift left out": (
+        "ray_tpu_torch.parallel.collectives", "ring_shift",
+        lambda real: lambda x, mesh, axis: x),
+    "last stage's outputs not summed over pp": (
+        "ray_tpu_torch.parallel.collectives", "reduce_from", _no_pp_sum),
+    "tp max of the int8 scale left out": (
+        "ray_tpu_torch.parallel.collectives", "all_max",
+        lambda real: lambda x, mesh, axes: x.detach()),
+    "MoE routing in per-rank groups": (
+        "ray_tpu_torch.models.moe", "moe_ffn", _per_rank_groups),
 }
-TRAIN_RUNS = (("fsdp=2", None), ("fsdp=2", "fsdp gradient reduce-scatter "
-                                            "left out"),
-              ("tp=2", None), ("tp=2", "tp sum of activations left out"),
-              ("tp=2", "tp sum of gradients left out"))
+# (run, fault or None): phase 8b's runs (chip_smoke.TWO_RANK_MESHES) and
+# phase 9's (chip_smoke.rank_phase9). A fault is caught when one of its
+# runs fails its phase's limits; every sound run must pass them.
+TRAIN_RUNS = (
+    ("fsdp=2", None), ("fsdp=2", "fsdp gradient reduce-scatter left out"),
+    ("tp=2", None), ("tp=2", "tp sum of activations left out"),
+    ("tp=2", "tp sum of gradients left out"),
+    ("pipeline", None), ("pipeline", "pipeline ring shift left out"),
+    ("pipeline", "last stage's outputs not summed over pp"),
+    ("tp=2 ffn8", None), ("tp=2 ffn8", "tp max of the int8 scale left out"),
+    ("moe sp=2", None), ("moe sp=2", "MoE routing in per-rank groups"),
+    ("sp=2", None), ("multislice fsdp=2", None),
+)
 
 
 def _train_runs(seed):
-    """On one rank: chip_smoke.rank_train for each of TRAIN_RUNS, the
-    fault patched in for its run only."""
+    """On one rank: each of TRAIN_RUNS, the fault patched in for its run
+    only."""
     out = {}
-    for mesh_name, fault in TRAIN_RUNS:
+    for name, fault in TRAIN_RUNS:
         patch = contextlib.nullcontext()
         if fault:
-            mod, attr, fn = TRAIN_FAULTS[fault]
-            patch = _patched(importlib.import_module(mod), attr, fn)
+            mod, attr, make = TRAIN_FAULTS[fault]
+            mod = importlib.import_module(mod)
+            patch = _patched(mod, attr, make(getattr(mod, attr)))
         with patch:
-            out[mesh_name, fault] = cs.rank_train(
-                seed, cs.TWO_RANK_MESHES[mesh_name])
+            if name in cs.TWO_RANK_MESHES:
+                out[name, fault] = cs.rank_train(seed,
+                                                 cs.TWO_RANK_MESHES[name])
+            else:
+                out[name, fault] = cs.rank_phase9(seed, name)
     return out
 
 
@@ -347,36 +398,59 @@ def _patched(mod, attr, fn):
         setattr(mod, attr, real)
 
 
+def _phase8b_readings(r, single):
+    loss_rel = [cs._rel(a, b) for a, b in zip(r["losses"], single["losses"])]
+    norm_rel = [cs._rel(a, b) for a, b in zip(r["norms"], single["norms"])]
+    ok = (max(loss_rel) <= cs.TWO_RANK_LOSS_REL
+          and max(norm_rel) <= cs.TWO_RANK_NORM_REL)
+    return (f"losses {r['losses']}, grad_norms {r['norms']}; relative to "
+            f"one process, loss " + ", ".join(f"{x:.3e}" for x in loss_rel)
+            + f" (limit {cs.TWO_RANK_LOSS_REL}), gradient norm "
+            + ", ".join(f"{x:.3e}" for x in norm_rel)
+            + f" (limit {cs.TWO_RANK_NORM_REL})"), ok
+
+
 def train_faults(seed=0) -> int:
-    single = cs.rank_train(seed, None)
-    print(f"one process, no warm-up: losses {single['losses']}, grad_norms "
-          f"{single['norms']}", flush=True)
-    ranks = cs.run_two_ranks(_train_runs, (seed,), timeout=1500)
+    single = {"bench": cs.rank_train(seed, None)}
+    print(f"one process, no warm-up: losses {single['bench']['losses']}, "
+          f"grad_norms {single['bench']['norms']}", flush=True)
+    single["sp=2"] = single["multislice fsdp=2"] = single["bench"]
+    for name in ("pipeline", "tp=2 ffn8", "moe sp=2"):
+        single[name] = cs.phase9_single(seed, name)
+        print(f"one process, {name}: "
+              + ", ".join(f"{k} {v}" for k, v in single[name].items()
+                          if k in ("loss", "losses", "aux", "norms")),
+              flush=True)
+    ranks = cs.run_two_ranks(_train_runs, (seed,), timeout=2400)
+    caught = {fault: False for fault in TRAIN_FAULTS}
     bad = []
     for key in TRAIN_RUNS:
-        r = ranks[0][key]
-        loss_rel = [_rel(a, b) for a, b in zip(r["losses"],
-                                               single["losses"])]
-        norm_rel = [_rel(a, b) for a, b in zip(r["norms"], single["norms"])]
-        caught = (max(loss_rel) > cs.TWO_RANK_LOSS_REL
-                  or max(norm_rel) > cs.TWO_RANK_NORM_REL)
-        print(f"{key[0]} {key[1] or 'sound'}: losses {r['losses']}, "
-              f"grad_norms {r['norms']}; relative to one process, loss "
-              + ", ".join(f"{x:.3e}" for x in loss_rel)
-              + f" (limit {cs.TWO_RANK_LOSS_REL}), gradient norm "
-              + ", ".join(f"{x:.3e}" for x in norm_rel)
-              + f" (limit {cs.TWO_RANK_NORM_REL}) "
-              + ("fails" if caught else "passes"), flush=True)
-        if caught != bool(key[1]):
-            bad.append(f"{key[0]} {key[1] or 'sound'}")
+        name, fault = key
+        oks = []
+        for i, rank in enumerate(ranks):
+            if name in cs.TWO_RANK_MESHES:
+                text, ok = _phase8b_readings(rank[key], single["bench"])
+            else:
+                text, ok = cs.phase9_readings(name, rank[key],
+                                              single.get(name))
+            oks.append(ok)
+            print(f"{name} {fault or 'sound'}, rank {i}: {text} "
+                  + ("passes" if ok else "fails"), flush=True)
+        if fault:
+            caught[fault] = caught[fault] or not all(oks)
+        elif not all(oks):
+            bad.append(f"{name} sound")
+    bad += [f"{fault} passes every limit" for fault, c in caught.items()
+            if not c]
+    flat, multi = (ranks[0][k, None]["losses"][0]
+                   for k in ("fsdp=2", "multislice fsdp=2"))
+    print(f"step 0 loss, flat fsdp=2 {flat!r}, multislice {multi!r}: "
+          + ("equal" if flat == multi else "differ"))
+    if flat != multi:
+        bad.append("multislice fsdp=2 step 0")
     if bad:
         print(f"wrong side of the limits: {bad}")
     return 1 if bad else 0
-
-
-def _rel(got, want):
-    """|got / want - 1|, infinite for a NaN."""
-    return math.inf if math.isnan(got) else abs(got / want - 1)
 
 
 def main() -> int:

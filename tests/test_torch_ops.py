@@ -107,7 +107,8 @@ def test_port_imports_neither_jax_nor_ray_tpu():
     assert len(files) > 10
     assert REPO / "ray_tpu_torch" / "models" / "moe.py" in files
     for name in ("mesh.py", "sharding.py", "collectives.py",
-                 "ring_attention.py", "ulysses.py"):
+                 "ring_attention.py", "ulysses.py", "pipeline.py",
+                 "showcase.py"):
         assert REPO / "ray_tpu_torch" / "parallel" / name in files
     for name in ("checkpoint.py", "dataloader.py", "memory.py"):
         assert REPO / "ray_tpu_torch" / "train" / name in files
@@ -125,7 +126,9 @@ def test_spawned_test_modules_import_no_jax_at_top_level():
     """The multi-process tests' ranks import their test module: its top
     level must not import JAX (the tests import it inside)."""
     names = ("test_torch_parallel_train.py", "test_torch_parallel_engine.py",
-             "test_torch_sequence_parallel.py", "torch_spawn_util.py")
+             "test_torch_sequence_parallel.py", "test_torch_pipeline.py",
+             "test_torch_showcase.py", "test_torch_multislice.py",
+             "torch_spawn_util.py")
     for name in names:
         tree = ast.parse((REPO / "tests" / name).read_text())
         for node in tree.body:

@@ -6,19 +6,29 @@ The port side runs in 8 spawned ranks of a gloo process group
 (tests/torch_spawn_util.py): one spawn per module, every case in it, one
 test per case. This module's top level imports torch, numpy and
 ray_tpu_torch only, so the ranks never import JAX; the tests import it.
+Also: flash_qkv_ffn8 under tp, a mesh with pp = 2, and MoE under sp.
 Tolerances are the reference tests': forward 2e-4 / 1e-4
 (tests/test_model.py:121), loss rtol 1e-4, parameters 2e-4, MoE forward
 2e-3 and aux loss rtol 1e-4 (tests/test_moe.py:99-103).
 """
 
+import contextlib
 import dataclasses
+from unittest import mock
 
 import numpy as np
 import pytest
 import torch
 from torch.distributed.tensor import DTensor, Shard
 
-from ray_tpu_torch.models.llama import PRESETS, embed_impl, forward, params_from_jax
+from ray_tpu_torch.models import llama
+from ray_tpu_torch.models.llama import (
+    PRESETS,
+    embed_impl,
+    forward,
+    params_from_jax,
+    quantize_int8,
+)
 from ray_tpu_torch.models.moe import MOE_PRESETS, moe_forward
 from ray_tpu_torch.parallel import collectives as col
 from ray_tpu_torch.parallel.mesh import MESH_AXES, make_mesh
@@ -37,6 +47,14 @@ MESH8 = {"dp": 2, "fsdp": 2, "tp": 2}
 MOE_EP = {"ep": 4, "dp": 2}
 MOE_TRAIN = {"dp": 2, "fsdp": 2, "ep": 2}
 STEPS = 2  # the first update runs at lr 0 (warmup), the second moves
+PP_MESH = {"pp": 2, "dp": 2, "tp": 2}
+# MoE under sp = 2: moe_tiny's 64-token groups span both sp ranks of a
+# 32-token sequence (every rank routes the gathered batch); 8-token groups
+# lie in one rank's 16-token block (each rank routes its own).
+MOE_SP_MESH = {"sp": 2, "dp": 2, "ep": 2}
+MOE_SP = {"moe_sp_groups_span": MOE,
+          "moe_sp_groups_local": dataclasses.replace(MOE, group_size=8)}
+INT8_GRAD_REL = 1e-2  # tests/test_torch_llama_train.py
 
 
 def _opt():
@@ -87,7 +105,48 @@ def _train(cfg, params, sizes, tokens):
                 and state.opt_state.count == STEPS)
 
 
-def _worker(rank, world, dense, moe, tokens, moe_tokens):
+def _grads(cfg, params, sizes, tokens):
+    """The loss and the whole gradients of one grad_step on ``sizes``."""
+    mesh = make_mesh(sizes, device_type="cpu")
+    params = shard_pytree(params, mesh, tstep.state_logical_axes(cfg, None)
+                          .params)
+    with use_mesh(mesh):
+        toks = distribute(torch.from_numpy(tokens), mesh,
+                          logical_spec(("batch", None))).to_local()
+        metrics, grads = tstep.grad_step(cfg)(params, {"tokens": toks})
+    return dict(loss=float(metrics["loss"]), grads=_flat(grads))
+
+
+@contextlib.contextmanager
+def _int8_recorded():
+    """Within: (x, q, scale) of every quantization the int8 op of
+    "flash_qkv_ffn8" makes (models/llama.py's ``_int8_ckpt_op``, through
+    ``quantize_int8``), as the op returned them."""
+    calls = []
+
+    def record(x, mesh=None):
+        q, scale = quantize_int8(x, mesh)
+        calls.append((x.detach(), q, scale))
+        return q, scale
+
+    with mock.patch.object(llama, "quantize_int8", record):
+        yield calls
+
+
+def _int8_mismatches(calls, mesh):
+    """How many int8 values and scales of ``calls`` (over all ranks)
+    differ from the whole rows' quantization: each activation gathered
+    over tp, quantized with no mesh, this rank's columns kept."""
+    bad = torch.zeros((), dtype=torch.int64)
+    for x, q, scale in calls:
+        want_q, want_scale = quantize_int8(col.gather_from(x, mesh, "tp", -1))
+        bad += ((col.local_chunk(want_q, mesh, "tp", -1) != q).sum()
+                + (want_scale != scale).sum())
+    torch.distributed.all_reduce(bad)
+    return int(bad)
+
+
+def _worker(rank, world, dense, moe, tokens, moe_tokens, q8_input):
     out = {}
     mesh = make_mesh(MESH8, device_type="cpu")
     with use_mesh(mesh):
@@ -98,18 +157,19 @@ def _worker(rank, world, dense, moe, tokens, moe_tokens):
                          distribute(torch.from_numpy(tokens[:, :16]), mesh,
                                     logical_spec(("batch", "act_seq"))), CFG)
     out["forward"] = _full(logits)
-    # Not ported under tp > 1: a row's int8 scale needs a max over tp.
-    ffn8 = dataclasses.replace(CFG, remat="flash_qkv_ffn8")
-    params = shard_pytree(dense, mesh, tstep.state_logical_axes(CFG, None)
-                          .params)
-    with use_mesh(mesh):
-        try:
-            tstep.loss_fn(params, {"tokens": torch.from_numpy(tokens[:1])},
-                          ffn8)
-            out["ffn8_tp"] = None
-        except NotImplementedError as e:
-            out["ffn8_tp"] = str(e)
+    # flash_qkv_ffn8 under tp: a row's int8 scale is its max over all of
+    # d_ff, the local max then the max over tp.
+    x = col.local_chunk(torch.from_numpy(q8_input), mesh, "tp", -1)
+    q, scale = quantize_int8(x, mesh)
+    out["q8_tp"] = col.gather_from(q.float() * scale, mesh, "tp", -1).numpy()
+    with _int8_recorded() as calls:
+        out["ffn8_tp"] = _grads(
+            dataclasses.replace(CFG, remat="flash_qkv_ffn8"), dense, MESH8,
+            tokens)
+    out["ffn8_tp_int8"] = dict(calls=len(calls),
+                               bad=_int8_mismatches(calls, mesh))
     out["train"] = _train(CFG, dense, MESH8, tokens)
+    out["train_pp"] = _train(CFG, dense, PP_MESH, tokens)
     flash = dataclasses.replace(CFG, attn_impl="flash", remat="flash_qkv")
     out["train_flash"] = _train(flash, dense, MESH8, tokens)
     out["train_dots_tp4"] = _train(dataclasses.replace(CFG, remat="dots"),
@@ -124,6 +184,8 @@ def _worker(rank, world, dense, moe, tokens, moe_tokens):
                 MOE)
         out[name] = (_full(lg), float(aux))
     out["moe_train"] = _train(MOE, moe, MOE_TRAIN, moe_tokens["moe_train"])
+    for name, cfg in MOE_SP.items():
+        out[name] = _train(cfg, moe, MOE_SP_MESH, moe_tokens["moe_train"])
     return out if rank == 0 else None
 
 
@@ -142,6 +204,7 @@ def ref():
         moe_param_logical_axes,
     )
     from ray_tpu.models import PRESETS as REF_PRESETS
+    from ray_tpu.models.llama import _int8_ckpt
     from ray_tpu.parallel import make_mesh as ref_make_mesh
     from ray_tpu.parallel.sharding import (
         shard_pytree as ref_shard,
@@ -192,7 +255,28 @@ def ref():
         return dict(metrics=metrics, params=flat)
 
     out["train"] = train(rcfg, MESH8, tokens)
+    out["train_pp"] = train(rcfg, PP_MESH, tokens)
     out["moe_train"] = train(rmoe, MOE_TRAIN, moe_tokens["moe_train"])
+    for name, cfg in MOE_SP.items():
+        rc = dataclasses.replace(rmoe, group_size=cfg.group_size)
+        out[name] = train(rc, MOE_SP_MESH, moe_tokens["moe_train"])
+
+    # flash_qkv_ffn8 under tp: the quantizer on a whole activation, and
+    # one sharded loss + gradient on mesh8.
+    q8 = np.random.default_rng(2).standard_normal((2, 8, 128)).astype(
+        np.float32)
+    out["q8_input"] = q8
+    out["q8"] = np.asarray(_int8_ckpt(jax.numpy.asarray(q8), "ffn_gate"))
+    rffn8 = dataclasses.replace(rcfg, remat="flash_qkv_ffn8")
+    batch = {"tokens": jax.device_put(tokens,
+                                      tree_shardings(mesh8, ("batch", None)))}
+    with ref_use_mesh(mesh8):
+        (loss, _), grads = jax.jit(
+            jax.value_and_grad(ref_step.loss_fn, has_aux=True),
+            static_argnums=(2,))(sp, batch, rffn8)
+    out["ffn8_tp"] = dict(loss=float(loss), grads={
+        "/".join(str(k.key) for k in path): np.asarray(v)
+        for path, v in jax.tree_util.tree_flatten_with_path(grads)[0]})
     mesh = ref_make_mesh(MOE_EP)
     sharded = ref_shard(mparams, mesh, moe_param_logical_axes(rmoe))
     for name in ("moe_fwd", "moe_fwd_local"):
@@ -210,7 +294,8 @@ def port(ref, tmp_path_factory):
     dense = params_from_jax(ref["params"], CFG, device="cpu")
     moe = params_from_jax(ref["moe_params"], MOE, device="cpu")
     return run_ranks(_worker, 8, tmp_path_factory.mktemp("rdzv"), dense,
-                     moe, ref["tokens"], ref["moe_tokens"])[0]
+                     moe, ref["tokens"], ref["moe_tokens"],
+                     ref["q8_input"])[0]
 
 
 # ------------------------------------------------------------ tests
@@ -235,8 +320,30 @@ def test_embed_auto_is_onehot_under_a_mesh(port):
     assert port["embed_impl"] == "onehot"
 
 
-def test_ffn8_under_tp_raises(port):
-    assert "flash_qkv_ffn8" in (port["ffn8_tp"] or "")
+def test_ffn8_under_tp_raises(ref, port):
+    """remat "flash_qkv_ffn8" under tp no longer raises: each tp rank
+    quantizes its columns of the FFN activations with the rows' scales
+    over all of d_ff (the local max, then the max over tp), the
+    reference's quantizer bit for bit; in the sharded step, every int8
+    value and scale the kept op makes (two per layer) equals the whole
+    rows' quantization; one sharded loss and gradient on mesh8 against
+    the reference's, the loss at 1e-5 and each gradient leaf within 1e-2
+    of its norm (int8 rounding flips, tests/test_torch_llama_train.py)."""
+    np.testing.assert_array_equal(port["q8_tp"], ref["q8"])
+    assert port["ffn8_tp_int8"] == dict(calls=2 * CFG.n_layers, bad=0)
+    got, want = port["ffn8_tp"], ref["ffn8_tp"]
+    np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-5)
+    assert got["grads"].keys() == want["grads"].keys()
+    for k, w in want["grads"].items():
+        rel = np.linalg.norm(got["grads"][k] - w) / np.linalg.norm(w)
+        assert rel <= INT8_GRAD_REL, (k, rel)
+
+
+def test_pp_train_step_matches_reference(ref, port):
+    """A mesh with pp = 2 runs jit_train_step as the reference does: the
+    Llama leaves carry "layers", not "stage", so they and the batch are
+    replicated over pp."""
+    _check_train(port["train_pp"], ref["train_pp"])
 
 
 def test_sharded_train_step_matches_reference(ref, port):
@@ -275,3 +382,12 @@ def test_moe_expert_sharded_forward_matches_reference(ref, port, name):
 def test_moe_train_step_on_mesh_matches_reference(ref, port):
     _check_train(port["moe_train"], ref["moe_train"])
     assert port["moe_train"]["metrics"][0]["aux_loss"] > 0.0
+
+
+@pytest.mark.parametrize("name", list(MOE_SP))
+def test_moe_train_step_under_sp_matches_reference(ref, port, name):
+    """MoE under sp = 2 (dense attention, the sequence gathered): routing
+    groups that span the sp ranks (gathered, routed whole on every rank)
+    and groups inside one rank's block (routed locally); the aux loss the
+    reference's."""
+    _check_train(port[name], ref[name])

@@ -1,7 +1,9 @@
 """Ring attention and Ulysses of the port (ray_tpu_torch/parallel/) against
 the reference's dense attention, and the train step with each against the
 reference's dense step: the reference's own checks
-(tests/test_sequence_parallel.py) on the mesh {"sp": 4, "tp": 2}.
+(tests/test_sequence_parallel.py) on the mesh {"sp": 4, "tp": 2}; dense
+and flash attention under sp (the sequence gathered over sp) against the
+reference's sharded steps.
 
 The port side runs in 8 spawned ranks of a gloo process group
 (tests/torch_spawn_util.py), once per module; this module's top level
@@ -28,6 +30,9 @@ CFG = PRESETS["tiny"]
 SP_MESH = {"sp": 4, "tp": 2}
 ULYSSES_TRAIN = {"sp": 2, "dp": 2, "ep": 2}
 DENSE_TRAIN = {"dp": 2, "tp": 4}
+# Dense and flash attention under sp = 2: each rank gathers the sequence.
+GATHERED_MESH = {"sp": 2, "dp": 2, "tp": 2}
+GATHERED = ("dense", "flash")
 
 
 def _qkv(seed, h=4, hkv=2, b=2, s=32, d=16):
@@ -90,12 +95,12 @@ def _worker(rank, world, params, tokens):
     o = ring(dq, dk, dv)
     assert isinstance(o, DTensor)
     out["ring_dtensor"] = _whole(o.to_local(), mesh)
-    # Dense attention cannot take a sequence block under sp > 1.
-    try:
-        _loss(CFG, params, SP_MESH, tokens)
-        out["dense_under_sp"] = None
-    except ValueError as e:
-        out["dense_under_sp"] = str(e)
+    # Dense attention under sp > 1: the sequence gathered over sp.
+    out["dense_under_sp"] = _loss(CFG, params, SP_MESH, tokens)
+    for impl in GATHERED:
+        out["gathered_" + impl] = _loss(
+            dataclasses.replace(CFG, attn_impl=impl), params, GATHERED_MESH,
+            tokens)
     out["loss_ring"] = _loss(dataclasses.replace(CFG, attn_impl="ring"),
                              params, SP_MESH, tokens)
     out["loss_ulysses"] = _loss(dataclasses.replace(CFG, attn_impl="ulysses"),
@@ -140,6 +145,18 @@ def ref():
         tokens, tree_shardings(mesh, ("batch", None)))}
     _, m = ref_step.jit_train_step(rcfg, opt, mesh)(state, batch)
     out["loss_dense"] = {k: float(v) for k, v in m.items()}
+    # The reference's own step with dense and flash (interpreted) under
+    # sp = 2, on the port's mesh.
+    mesh = ref_make_mesh(GATHERED_MESH)
+    for impl in GATHERED:
+        cfg = dataclasses.replace(rcfg, attn_impl=impl)
+        state = jax.device_put(
+            ref_step.init_train_state(jax.random.key(0), cfg, opt),
+            tree_shardings(mesh, ref_step.state_logical_axes(cfg, opt)))
+        batch = {"tokens": jax.device_put(
+            tokens, tree_shardings(mesh, ("batch", None)))}
+        _, m = ref_step.jit_train_step(cfg, opt, mesh)(state, batch)
+        out["gathered_" + impl] = {k: float(v) for k, v in m.items()}
     out["tokens"] = tokens
     out["params"] = jax.tree.map(
         np.asarray, init_params(jax.random.key(0), rcfg))
@@ -176,8 +193,26 @@ def test_ring_attention_grads(ref, port, name):
                                ref["ring_grads"][name], atol=5e-4)
 
 
-def test_dense_attention_under_sp_raises(port):
-    assert "ring" in (port["dense_under_sp"] or "")
+def test_dense_attention_under_sp_raises(ref, port):
+    """Dense attention under sp = 4 no longer raises: each rank gathers
+    the sequence over sp, attends it whole and keeps its rows, as the
+    reference's partitioner does; the step equals the reference's dense
+    step on {"dp": 2, "tp": 4}."""
+    got, want = port["dense_under_sp"], ref["loss_dense"]
+    np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-4)
+    np.testing.assert_allclose(got["grad_norm"], want["grad_norm"],
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("impl", GATHERED)
+def test_gathered_attention_under_sp_matches_reference(ref, port, impl):
+    """attn_impl "dense" and "flash" on {"sp": 2, "dp": 2, "tp": 2}
+    against the reference's sharded step with the same attention on the
+    same mesh (its flash kernel interpreted)."""
+    got, want = port["gathered_" + impl], ref["gathered_" + impl]
+    np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-4)
+    np.testing.assert_allclose(got["grad_norm"], want["grad_norm"],
+                               rtol=1e-4)
 
 
 @pytest.mark.parametrize("impl", ["ring", "ulysses", "dense"])
