@@ -112,6 +112,23 @@ Phase 9  two ranks on the one card over gloo (correctness only), each
          make_multislice_mesh({}, {"fsdp": 2}) over two one-rank fake
          slices: step 0's loss bit for bit phase 8b's. Every phase prints
          its seconds.
+Phase 10 the port's runtime (ray_tpu_torch.init) on the card: the node
+         detects the GPU as a resource without a CUDA context (checked in
+         a fresh process); a num_gpus=1 task runs F1 in its own worker at
+         phase 3's prefill shape (B=1, S=1024, 32 / 8 heads of 128, bf16;
+         O held to the plain version in fp32 by FLASH_ORACLE_*, one
+         launch); mini's parameters go into the object store as one put
+         of a numpy tree, and a num_gpus=1 actor builds mini's paged
+         LLMEngine from them and serves phase 2's mini prompts, greedy:
+         its streams must equal phase 2's token for token and its P1 and
+         F1 launches phase 2's; its dense engine serves phase 3's prompt
+         (stream and F1 launches equal to phase 3's: the paged engine
+         prefills without F1); while it holds the GPU a second
+         num_gpus=1 task must wait, and run once the actor is killed;
+         the actor's memory sample (runtime/memory.py) must read its
+         torch.cuda.memory_allocated within 1% and claim the paged pool's
+         bytes, and the head's memory ledger must show it. Prints the
+         init, first GPU task, actor cold start and decode times.
 Timing   each kernel at the main path's shapes (CUDA events, cold L2):
          its time, its plain version's, its bound (P1 also at the verify
          step's K = 4 and at batch 64, on lines of their own), and for the flash
@@ -144,6 +161,7 @@ import gc
 import importlib
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -756,7 +774,7 @@ def phase2(cfg, params, seed, device="cuda", max_seq=2048, page_size=64,
     steps0 = eng.stats()["decode_steps"]
     reset_counts()
     outs, step_s, step_tokens, fins = serve(eng, prompts, sp)
-    p_launch, _, _ = counts()
+    p_launch, f_launch, _ = counts()
     st = eng.stats()
     steps = st["decode_steps"] - steps0
     check(all(o is not None and len(o) == max_tokens for o in outs),
@@ -810,6 +828,8 @@ def phase2(cfg, params, seed, device="cuda", max_seq=2048, page_size=64,
           f"acceptance {st_spec.get('draft_acceptance_rate', 0.0)}")
     return {
         "launches": p_launch + p_spec,
+        "greedy_launches": (p_launch, f_launch),
+        "prompts": prompts,
         "outs": outs,
         "decode_tokens_per_s": decode_tps,
         "ttft_s_mean": float(np.mean(ttft)),
@@ -963,7 +983,8 @@ def phase3(cfg, params, seed, device="cuda", max_seq=2048, prompt_len=1024,
     logits_tolerance("prefill logits, flash kernel vs plain",
                      rec["logits"][0, :prompt_len],
                      plain_logits[0, :prompt_len])
-    return {"launches": f_launch, "ttft_s": fins[0]["timing"]["ttft_s"]}
+    return {"launches": f_launch, "ttft_s": fins[0]["timing"]["ttft_s"],
+            "prompt": prompt, "out": outs[0]}
 
 
 # ------------------------------------------------------------ training
@@ -2281,6 +2302,264 @@ def phase9(seed, p8):
 
 
 # ------------------------------------------------------------ timing
+# ------------------------------------------------------------ runtime
+def numpy_tree(params):
+    """A parameter tree as fp32 numpy arrays (bf16 widens exactly) and
+    each leaf's torch dtype, for the object store."""
+    if isinstance(params, dict):
+        pairs = {k: numpy_tree(v) for k, v in params.items()}
+        return ({k: a for k, (a, _) in pairs.items()},
+                {k: d for k, (_, d) in pairs.items()})
+    return (params.detach().float().cpu().numpy(),
+            str(params.dtype).removeprefix("torch."))
+
+
+def torch_tree(arrays, dtypes, device):
+    """The inverse of :func:`numpy_tree`, on ``device``."""
+    if isinstance(arrays, dict):
+        return {k: torch_tree(arrays[k], dtypes[k], device) for k in arrays}
+    return torch.from_numpy(np.asarray(arrays)).to(
+        device=device, dtype=getattr(torch, dtypes))
+
+
+def detection_without_cuda():
+    """Run the node's resource detection in a fresh process: its GPU
+    count, and whether it imported torch or created a CUDA context."""
+    code = (
+        "import json, sys\n"
+        "from ray_tpu_torch.runtime.node import detect_resources\n"
+        "res = detect_resources()\n"
+        "loaded = 'torch' in sys.modules\n"
+        "import torch\n"
+        "print(json.dumps({'gpu': res.get('GPU'), 'torch_loaded': loaded,"
+        " 'cuda_initialized': torch.cuda.is_initialized()}))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, check=True)
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+PHASE10_SHAPE = (1, 1024, 32, 8, 128)  # phase 3's prefill: B, S, H, Hkv, D
+
+
+def flash_task(seed):
+    """Phase 10's GPU task: F1 at phase 3's prefill shape on inputs drawn
+    from ``seed`` in this worker; returns (pid, O, LSE, launches)."""
+    import os
+
+    from ray_tpu_torch.ops.flash_attention import flash_attention_forward
+
+    b, s, h, hkv, d = PHASE10_SHAPE
+    q, k, v, _ = flash_inputs(b, s, torch.bfloat16, seed, h=h, hkv=hkv, d=d)
+    flash_attention_forward.launches = 0
+    o, lse = flash_attention_forward(q, k, v, True)
+    sync()
+    return os.getpid(), o, lse, flash_attention_forward.launches
+
+
+def gpu_probe():
+    import os
+
+    return os.getpid()
+
+
+class MiniServer:
+    """Phase 10's GPU actor: mini's paged LLMEngine on the card, built
+    from the numpy tree that arrives through the object store."""
+
+    def __init__(self, tree, seed):
+        from ray_tpu_torch.llm.engine import LLMEngine
+        from ray_tpu_torch.models.llama import PRESETS
+
+        arrays, dtypes = tree
+        self.cfg = PRESETS["mini"]
+        params = torch_tree(arrays, dtypes, "cuda")
+        self.engine = LLMEngine(self.cfg, max_batch=8, max_seq=2048,
+                                params=params, kv="paged", page_size=64,
+                                seed=seed, device="cuda")
+        self.dense = LLMEngine(self.cfg, max_batch=1, max_seq=2048,
+                               params=params, kv="dense", seed=seed,
+                               device="cuda")
+        sync()
+
+    def ready(self):
+        import os
+
+        return os.getpid()
+
+    def serve_greedy(self, prompts, max_tokens):
+        """Phase 2's greedy pass: a 2-token warm-up, then the counted
+        pass; returns (streams, (P1, F1) launches, decode tokens/s)."""
+        from ray_tpu_torch.llm.engine import SamplingParams
+
+        serve(self.engine, prompts, SamplingParams(max_tokens=2))
+        reset_counts()
+        outs, step_s, step_tokens, _ = serve(
+            self.engine, prompts, SamplingParams(max_tokens=max_tokens))
+        p_launch, f_launch, _ = counts()
+        return (outs, (p_launch, f_launch),
+                sum(step_tokens[1:]) / sum(step_s[1:]))
+
+    def serve_dense(self, prompt, max_tokens):
+        """Phase 3's dense prefill and decode of one prompt; returns (the
+        stream, (P1, F1) launches)."""
+        from ray_tpu_torch.llm.engine import SamplingParams
+
+        reset_counts()
+        outs, _s, _t, _f = serve(self.dense, [prompt],
+                                 SamplingParams(max_tokens=max_tokens))
+        p_launch, f_launch, _ = counts()
+        return outs[0], (p_launch, f_launch)
+
+    def memory(self):
+        """One memory sample, read beside the allocator and the pool."""
+        from ray_tpu_torch.runtime import memory
+
+        rec = memory.sample()
+        allocated = torch.cuda.memory_allocated()
+        reg = memory._registry.get("llm.paged_kv")
+        pool = self.engine.cache
+        return {"sample": rec, "allocated": allocated,
+                "claim": None if reg is None else reg.current_bytes(),
+                "pool_bytes": pool["k"].nbytes + pool["v"].nbytes}
+
+
+def phase10(seed, cfg, mini_tree, m2, m3, timeout=600):
+    import ray_tpu_torch as rt
+    import ray_tpu_torch.api as rt_api
+    from ray_tpu_torch.ops.flash_attention import flash_attention_reference
+
+    print("phase 10: the runtime on the card, a GPU task and a GPU actor")
+    det = detection_without_cuda()
+    print(f"  detection in a fresh process: {det}")
+    check(det["gpu"] == float(torch.cuda.device_count()) == 1.0,
+          f"the node detected {det['gpu']} GPUs, the card is one")
+    check(not det["torch_loaded"] and not det["cuda_initialized"],
+          "resource detection loaded torch or created a CUDA context")
+    t0 = time.perf_counter()
+    rt.init(num_cpus=4)
+    init_s = time.perf_counter() - t0
+    try:
+        res = rt.cluster_resources()
+        print(f"  cluster resources {res}")
+        check(res.get("GPU") == 1.0, f"cluster GPU resource {res.get('GPU')}")
+
+        # (b) a GPU task runs F1 in its own worker.
+        b, s, h, hkv, d = PHASE10_SHAPE
+        t0 = time.perf_counter()
+        pid, o, lse, task_f1 = rt.get(
+            rt.remote(num_gpus=1)(flash_task).remote(seed), timeout=timeout)
+        task_s = time.perf_counter() - t0
+        check(pid != os.getpid(), "the GPU task ran in the driver")
+        check(o.is_cuda and o.dtype == torch.bfloat16
+              and o.shape == (b, s, h, d) and lse.shape == (b * h, 1, s),
+              f"GPU task returned O {o.dtype} {tuple(o.shape)} on {o.device}")
+        check(task_f1 == 1, f"the GPU task launched F1 {task_f1} times")
+        q, k, v, _ = flash_inputs(b, s, torch.bfloat16, seed, h=h, hkv=hkv,
+                                  d=d)
+        o_32, _ = flash_attention_reference(q.float(), k.float(), v.float(),
+                                            True)
+        _, lse_ref = flash_attention_reference(q, k, v, True)
+        (atol, rtol), norm = FLASH_ORACLE_TOL, FLASH_ORACLE_NORM
+        compare("GPU task F1 O vs fp32", o, o_32, atol, rtol, norm)
+        compare("GPU task F1 LSE", lse, lse_ref, 1e-4, 1e-4)
+        del q, k, v, o, lse, o_32, lse_ref
+
+        # (c) a GPU actor serves mini from one put of its numpy tree.
+        put_bytes = sum(a.nbytes for a in _leaves(mini_tree[0]))
+        t0 = time.perf_counter()
+        ref = rt.put(mini_tree)
+        put_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        actor = rt.remote(num_gpus=1)(MiniServer).remote(ref, seed)
+        actor_pid = rt.get(actor.ready.remote(), timeout=timeout)
+        cold_s = time.perf_counter() - t0
+        check(actor_pid != os.getpid(), "the GPU actor runs in the driver")
+        outs, launches, tps = rt.get(
+            actor.serve_greedy.remote(m2["prompts"], len(m2["outs"][0])),
+            timeout=timeout)
+        same = sum(a == b for a, b in zip(outs, m2["outs"]))
+        print(f"  actor (pid {actor_pid}): {same} of {len(outs)} streams "
+              f"equal phase 2's; launches P1 {launches[0]} F1 {launches[1]} "
+              f"(phase 2: {m2['greedy_launches']}); put of "
+              f"{put_bytes / 1e9:.3f} GB took {put_s:.3f} s")
+        check(same == len(outs) == len(m2["outs"]),
+              "the actor's mini streams differ from phase 2's")
+        check(tuple(launches) == tuple(m2["greedy_launches"]),
+              f"the actor's P1/F1 launches {launches} are not phase 2's "
+              f"{m2['greedy_launches']}")
+        # The paged engine prefills without F1 (phase 2 counts none); the
+        # actor's dense engine prefills through it, as phase 3's does.
+        dense_out, dense_launches = rt.get(
+            actor.serve_dense.remote(m3["prompt"], len(m3["out"])),
+            timeout=timeout)
+        print(f"  actor dense prefill + decode: stream equal to phase 3's: "
+              f"{dense_out == m3['out']}; launches P1 {dense_launches[0]} "
+              f"F1 {dense_launches[1]} (phase 3: F1 {m3['launches']})")
+        check(dense_out == m3["out"],
+              "the actor's dense mini stream differs from phase 3's")
+        check(dense_launches == (0, m3["launches"]),
+              f"the actor's dense launches {dense_launches} are not phase "
+              f"3's (0, {m3['launches']})")
+
+        # (e) the memory plane inside the actor, and the head's ledger.
+        mem = rt.get(actor.memory.remote(), timeout=timeout)
+        hbm = mem["sample"]["hbm"]
+        print(f"  actor memory sample: used {hbm['used_bytes']} B "
+              f"(memory_allocated {mem['allocated']}), source "
+              f"{hbm['source']}, capacity {hbm['capacity_bytes']} "
+              f"({hbm['capacity_source']}); llm.paged_kv claim "
+              f"{mem['claim']} B, pool {mem['pool_bytes']} B")
+        check(hbm["source"] == "memory_stats",
+              f"the actor's sample came from {hbm['source']}")
+        check(abs(hbm["used_bytes"] - mem["allocated"])
+              <= 0.01 * mem["allocated"],
+              "sampled device bytes are not within 1% of memory_allocated")
+        check(mem["claim"] == mem["pool_bytes"],
+              "the llm.paged_kv claim is not the pool's bytes")
+        rtm = rt_api._runtime
+        node = mem["sample"]["node"]
+        deadline = time.monotonic() + 30
+        while True:
+            ledger = rtm.run(rtm.core.head.call("mem_stats"))
+            row = ledger["nodes"].get(node)
+            if row and row["used_bytes"] == hbm["used_bytes"]:
+                break
+            check(time.monotonic() < deadline,
+                  f"the head's memory ledger does not show the sample: "
+                  f"{row}")
+            time.sleep(0.5)
+        print(f"  head memory ledger, node {node}: used {row['used_bytes']} "
+              f"B, by kind {row['by_kind']}, {row['samples']} samples")
+        check(row["by_kind"].get("kv_cache") == mem["claim"],
+              "the head's ledger does not carry the kv_cache claim")
+
+        # (d) the actor holds the GPU: a second GPU task waits for it.
+        waiting = rt.remote(num_gpus=1)(gpu_probe).remote()
+        ready, _ = rt.wait([waiting], timeout=2.0)
+        check(not ready, "a second num_gpus=1 task ran while the actor held "
+              "the GPU")
+        rt.kill(actor)
+        t0 = time.perf_counter()
+        probe_pid = rt.get(waiting, timeout=timeout)
+        print(f"  second GPU task: waited 2 s while the actor held the GPU, "
+              f"ran (pid {probe_pid}) {time.perf_counter() - t0:.3f} s after "
+              f"the kill")
+    finally:
+        rt.shutdown()
+    return {"init_s": init_s, "task_s": task_s, "cold_s": cold_s,
+            "put_bytes": put_bytes, "decode_tokens_per_s": tps,
+            "task_f1": task_f1,
+            "actor_launches": (launches[0] + dense_launches[0],
+                               launches[1] + dense_launches[1])}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
 def bound_of(nbytes, flops):
     """(bound_ms, bound_by): the larger of the byte and operation times."""
     bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
@@ -2512,6 +2791,7 @@ def main() -> int:
           f"{mini.dtype}")
     m2 = phase2(mini, params, args.seed, name="mini")
     m3 = phase3(mini, params, args.seed, name="mini")
+    mini_tree = numpy_tree(params)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2552,6 +2832,11 @@ def main() -> int:
     lap("phase 8b")
     p9 = phase9(args.seed, p8)
     lap("phase 9")
+    gc.collect()
+    torch.cuda.empty_cache()
+    p10 = phase10(args.seed, mini, mini_tree, m2, m3)
+    del mini_tree
+    lap("phase 10")
     prof = p4["profile"]
     print(f"train: {p4['tokens_per_s']:.1f} tokens/s, "
           f"{p4['peak_share']:.2%} of dense bf16 peak, step "
@@ -2606,6 +2891,19 @@ def main() -> int:
           f"{p9['multislice fsdp=2']['losses']}; sp=2 flash launches "
           f"{p9['sp=2']['f1']} + {p9['sp=2']['f2']} (both ranks, phase 4's "
           f"shape) [{card}]")
+    print(f"phase 10, the runtime on the card: init {p10['init_s']:.3f} s; "
+          f"first GPU task (F1 at B=1 S=1024, worker spawn, CUDA context and "
+          f"kernel load included) {p10['task_s']:.3f} s; GPU actor cold "
+          f"start (mini's paged engine from one put of "
+          f"{p10['put_bytes'] / 1e9:.3f} GB) {p10['cold_s']:.3f} s; mini "
+          f"decode {p10['decode_tokens_per_s']:.1f} tokens/s through the "
+          f"actor, {m2['decode_tokens_per_s']:.1f} in process (phase 2) "
+          f"[{card}]")
+    print(f"phase 10 launches (worker processes, not in the kernels line): "
+          f"GPU task F1 {p10['task_f1']}; actor P1 {p10['actor_launches'][0]}"
+          f" F1 {p10['actor_launches'][1]} (phase 2 mini greedy P1 / F1 "
+          f"{m2['greedy_launches'][0]} / {m2['greedy_launches'][1]}, phase 3 "
+          f"mini F1 {m3['launches']})")
     rows.update({k: tp_rows[k] for k in TP_MAIN_ROWS})
     rows.update(p9["pipeline"]["rows"])
     print(f"run took {time.time() - t_start:.1f} s")

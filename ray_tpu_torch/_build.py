@@ -20,8 +20,9 @@ from pathlib import Path
 
 import torch
 
+from ray_tpu_torch._native import BUILD_DIR
+
 _CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "ray_tpu_torch"
 KERNELS = ("paged_attention", "flash_fwd", "flash_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -16,9 +16,11 @@ import subprocess
 import threading
 from pathlib import Path
 
-from ray_tpu_torch._build import BUILD_DIR
-
 NATIVE_DIR = Path(__file__).resolve().parent.parent / "native"
+# Where every library of the port is built, the CUDA kernels' too
+# (``_build`` imports it from here: ``_build`` imports torch, which host
+# code such as the object store must not pay for).
+BUILD_DIR = NATIVE_DIR.parent.parent / "build" / "ray_tpu_torch"
 GXX_FLAGS = ("-O2", "-fPIC", "-shared", "-std=c++17")
 
 _lock = threading.Lock()  # one build at a time within a process

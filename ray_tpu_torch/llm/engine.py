@@ -258,11 +258,18 @@ class LLMEngine:
 
     def _begin_prefill(self, req: _Request) -> None:
         """Mark prefill start (first-write-wins) and apply the injected
-        ``prefill_delay_s``."""
+        prefill delay (the ``prefill_delay_s`` engine kwarg, or the
+        RAY_TPU_LLM_PREFILL_DELAY env knob) — a deterministic TTFT
+        injection."""
         if req.prefill_start_ts == 0.0:
             req.prefill_start_ts = time.time()
-        if self.prefill_delay_s > 0:
-            time.sleep(self.prefill_delay_s)
+        delay = self.prefill_delay_s
+        if delay <= 0:
+            from ray_tpu_torch._private import config
+
+            delay = config.get("LLM_PREFILL_DELAY")
+        if delay > 0:
+            time.sleep(delay)
 
     def has_unfinished(self) -> bool:
         return bool(

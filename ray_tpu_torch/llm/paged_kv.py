@@ -38,6 +38,9 @@ from ray_tpu_torch.ops.paged_attention import paged_attention
 from ray_tpu_torch.ops.rope import apply_rope, rope_frequencies
 
 _NEG_INF = -2.0e38
+# The pool's live claim in the device-memory ledger (runtime/memory.py),
+# kept so a re-created pool retires the previous claim.
+_KV_REG = None
 
 PagedKV = dict[str, torch.Tensor]  # {"k","v": [L, num_pages, Hkv, P, Dh]}
 
@@ -56,10 +59,23 @@ def init_paged_kv(
     shape = (cfg.n_layers, num_pages, kv_heads_per_rank(cfg, mesh),
              page_size, cfg.head_dim)
     dev = resolve_device(device)
-    return {
+    kv = {
         "k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
         "v": torch.zeros(shape, dtype=cfg.dtype, device=dev),
     }
+    # Claim the pool in the device-memory ledger: the KV pages are
+    # serving's big fixed tenant of device memory.
+    from ray_tpu_torch.runtime import memory as _rmem
+
+    global _KV_REG
+    if _KV_REG is not None:
+        _KV_REG.close()
+    _KV_REG = _rmem.track(
+        "llm.paged_kv", kind="kv_cache",
+        nbytes=int(kv["k"].nbytes + kv["v"].nbytes),
+    )
+    _rmem.tag_arrays("llm.paged_kv", "kv_cache", kv)
+    return kv
 
 
 class PageAllocator:

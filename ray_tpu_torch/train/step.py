@@ -273,9 +273,11 @@ def train_state_from_jax(state, device: str | torch.device = "cuda"
                           for path, leaf in _flatten(t))
 
     params = tree(state.params, grad=True)
-    return TrainState(int(state.step), params,
-                      AdamWState(int(adam.count), tree(adam.mu),
-                                 tree(adam.nu)))
+    out = TrainState(int(state.step), params,
+                     AdamWState(int(adam.count), tree(adam.mu),
+                                tree(adam.nu)))
+    _register_state_memory(out)
+    return out
 
 
 def train_state_dict(state: TrainState) -> dict[str, torch.Tensor]:
@@ -357,7 +359,44 @@ def init_train_state(
         params = shard_pytree(params, mesh, logical_axes(cfg))
     for _, t in _flatten(params):
         t.requires_grad_(True)
-    return TrainState(0, params, optimizer.init(params))
+    state = TrainState(0, params, optimizer.init(params))
+    _register_state_memory(state)
+    return state
+
+
+# Live ledger claims of the resident train state (runtime/memory.py), by
+# tag, so a re-initialized state retires the previous claim.
+_STATE_REGS: dict[str, object] = {}
+
+
+def _register_tagged(tag: str, kind: str, tree) -> None:
+    """One resident-state claim: the previous claim under ``tag`` is
+    retired, and the tensors are tagged for OOM forensics."""
+    from ray_tpu_torch.runtime import memory as rmem
+
+    if not rmem.enabled():
+        return
+    old = _STATE_REGS.get(tag)
+    if old is not None:
+        old.close()
+    leaves = [t for _, t in _flatten(tree)]
+    _STATE_REGS[tag] = rmem.track(tag, kind=kind,
+                                  nbytes=sum(int(t.nbytes) for t in leaves))
+    rmem.tag_arrays(tag, kind, leaves)
+
+
+def _register_state_memory(state: TrainState) -> None:
+    """Claim the resident train state in the device-memory ledger:
+    parameters and the optimizer's moments are the two biggest fixed
+    tenants of device memory. adam's step count is a host int here, so
+    the optimizer claim is mu and nu."""
+    from ray_tpu_torch.runtime import memory as rmem
+
+    if not rmem.enabled():
+        return
+    _register_tagged("train.state.params", "params", state.params)
+    _register_tagged("train.state.optimizer", "optimizer",
+                     {"mu": state.opt_state.mu, "nu": state.opt_state.nu})
 
 
 def _ce_chunk(x, lm_head, targets, dtype, scope=None):

@@ -113,6 +113,23 @@ def test_port_imports_neither_jax_nor_ray_tpu():
     for name in ("checkpoint.py", "dataloader.py", "memory.py"):
         assert REPO / "ray_tpu_torch" / "train" / name in files
     assert REPO / "ray_tpu_torch" / "_native" / "dataloader.py" in files
+    for name in ("api.py", "placement.py", "exceptions.py", "version.py",
+                 "_native/shmstore.py", "_private/config.py",
+                 "_private/ids.py", "_private/rpc.py",
+                 "_private/serialization.py", "_private/sanitize.py",
+                 "_private/test_utils.py", "_private/usage.py",
+                 "_private/accelerators/__init__.py",
+                 "_private/accelerators/accelerator.py",
+                 "_private/accelerators/gpu.py", "collective/__init__.py",
+                 "collective/types.py", "runtime/agent.py",
+                 "runtime/core_worker.py", "runtime/drain.py",
+                 "runtime/head.py", "runtime/head_storage.py",
+                 "runtime/memory.py", "runtime/node.py",
+                 "runtime/object_store.py", "runtime/runtime_env.py",
+                 "runtime/transfer.py", "runtime/worker_main.py",
+                 "util/metrics.py", "util/rpdb.py",
+                 "util/scheduling_strategies.py", "util/tracing.py"):
+        assert REPO / "ray_tpu_torch" / name in files, name
     bad = []
     for path in files:
         for mod in _imports(path):
