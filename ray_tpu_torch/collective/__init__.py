@@ -3,10 +3,14 @@ python/ray/util/collective/collective.py — init_collective_group :171,
 allreduce :328, barrier :368, reduce :381, broadcast :443, allgather :493,
 reducescatter :542, send :601, recv :664).
 
-The default data plane is XLA collectives (ICI within a slice, DCN across
-slices) instead of NCCL/Gloo; host-memory tensors use the CPU backend over
-the runtime RPC. Groups are process-wide, keyed by name, and rendezvous
-through the cluster head's KV store.
+The device data plane is NCCL: ``nccl_mesh`` drives the GPUs of this
+process from one controller (``torch.cuda.nccl``; ranks that share a
+device, or CPU tensors, reduce with device-local torch), ``nccl`` makes
+each process a rank of a ``torch.distributed`` process group of the
+group's own (backend "nccl" for CUDA tensors, or "gloo" when asked).
+Host-memory tensors use the CPU backend over the runtime RPC. Groups are
+process-wide, keyed by name, and rendezvous through the cluster head's KV
+store.
 
 Fault tolerance: every op takes a deadline (group default via
 ``init_collective_group(timeout_s=)``, per-op override on each verb);
@@ -29,10 +33,11 @@ Communication efficiency: ``compression="int8"`` on
 allreduce/reducescatter/allgather ships block-scaled int8 + per-block
 absmax scales on the wire with fp32 accumulation (EQuARX,
 arXiv:2506.17615; collective/codec.py); ``algo=`` picks the data-plane
-algorithm — hub/ring/tree on the cpu backend, tree/ring lowering on the
-XLA backends, "auto" by message size via the crossover table, and a
-hierarchical two-level ICI/DCN allreduce for multi-slice meshes (The
-Big Send-off, arXiv:2504.18658; collective/algo.py). The flight
+algorithm — hub/ring/tree on the cpu backend, one-shot or
+reduce-scatter + all-gather on the NCCL backends, "auto" by message size
+via the crossover table, and a hierarchical two-level allreduce for
+devices grouped into slices (nodes; The Big Send-off, arXiv:2504.18658;
+collective/algo.py). The flight
 recorder tracks logical vs wire bytes separately
 (ray_tpu_collective_wire_bytes_total, compression-ratio gauge).
 """
@@ -69,7 +74,7 @@ def _resolve_backend(backend) -> Backend:
     if backend is Backend.AUTO:
         import torch
 
-        return (Backend.XLA_MESH if torch.cuda.device_count() > 1
+        return (Backend.NCCL_MESH if torch.cuda.device_count() > 1
                 else Backend.CPU)
     return backend
 
@@ -125,8 +130,18 @@ def init_collective_group(
     group_name: str = "default",
     timeout_s: float | None = None,
     auto_reform: bool = False,
+    dist_backend: str = "nccl",
+    devices: Sequence | None = None,
 ) -> None:
     """Join this process into a named collective group.
+
+    ``dist_backend`` is the ``torch.distributed`` backend of a
+    ``Backend.NCCL`` group: "nccl" (the default, CUDA tensors) or "gloo"
+    (only when passed: CPU tensors, or CUDA tensors staged by gloo through
+    host memory). A group whose NCCL fails raises; it never switches.
+    ``devices`` are a ``Backend.NCCL_MESH`` group's ranks (every visible
+    CUDA device by default; ``["cpu"] * n`` runs the group's plain
+    device-local route on host tensors).
 
     ``timeout_s`` is the group's default deadline for rendezvous and
     every op (config COLLECTIVE_TIMEOUT_S when None); individual verbs
@@ -153,35 +168,35 @@ def init_collective_group(
             return g
 
         _groups[group_name] = rt.run(make())
-    elif backend is Backend.XLA_MESH:
-        from ray_tpu_torch.collective.backends.xla_group import XlaMeshGroup
+    elif backend is Backend.NCCL_MESH:
+        from ray_tpu_torch.collective.backends.nccl_group import NcclMeshGroup
 
-        g = XlaMeshGroup(name=group_name)
+        g = NcclMeshGroup(devices, name=group_name)
         if g.world != world_size:
             raise ValueError(
-                f"xla_mesh backend: {g.world} local devices != "
+                f"nccl_mesh backend: {g.world} local devices != "
                 f"world_size {world_size}"
             )
         _groups[group_name] = g
-    elif backend is Backend.XLA_DIST:
-        from ray_tpu_torch.collective.backends.xla_group import (
-            XlaDistGroup,
+    elif backend is Backend.NCCL:
+        from ray_tpu_torch.collective.backends.nccl_group import (
+            NcclDistGroup,
             bootstrap_distributed,
         )
 
-        rt.run(
+        store = rt.run(
             bootstrap_distributed(
                 rt.core, group_name, world_size, rank, timeout_s=timeout_s
             )
         )
-        _groups[group_name] = XlaDistGroup(
+        _groups[group_name] = NcclDistGroup(
             world_size, rank, timeout_s=timeout_s, name=group_name,
-            core=rt.core,
+            core=rt.core, store=store, dist_backend=dist_backend,
         )
 
         async def _register_dist():
             # Head membership + death watch: the fan-out is what lets
-            # XlaDistGroup's deadline-bounded sync abort EARLY (poison
+            # NcclDistGroup's deadline-bounded sync abort EARLY (poison
             # polling between bounded waits) instead of at the deadline.
             try:
                 await rt.core.head.call(
@@ -335,7 +350,7 @@ def _dispatch(name: str, group_name: str, *args, **kw):
         and not isinstance(args[0], (list, tuple))
     ):
         raise TypeError(
-            f"group {group_name!r} uses the single-controller xla_mesh "
+            f"group {group_name!r} uses the single-controller nccl_mesh "
             f"backend: pass a list of {g.world} per-rank tensors, one per "
             "device (each rank is a local device, not a process)"
         )
@@ -522,10 +537,11 @@ def _dispatch_async(
     (run_coroutine_threadsafe) — the existing hub/mailbox protocol runs
     unchanged on that background thread while the caller's thread keeps
     computing; the op's flight-recorder interval is its real
-    dispatch→completion window on the loop. XLA backends: the group's
-    own ``<verb>_async`` (mesh — XLA async dispatch; dist — the
-    group's dispatch thread). Async handles do not auto-reform: a
-    failure surfaces typed from ``wait()``."""
+    dispatch→completion window on the loop. NCCL backends: the group's
+    own ``<verb>_async`` (mesh — launches on the device streams, the
+    handle waits on an event; dist — the group's dispatch thread). Async
+    handles do not auto-reform: a failure surfaces typed from
+    ``wait()``."""
     g = get_group(group_name)
     if (
         getattr(g, "expects_per_rank_tensors", False)
@@ -533,7 +549,7 @@ def _dispatch_async(
         and not isinstance(tensor, (list, tuple))
     ):
         raise TypeError(
-            f"group {group_name!r} uses the single-controller xla_mesh "
+            f"group {group_name!r} uses the single-controller nccl_mesh "
             f"backend: pass a list of {g.world} per-rank tensors, one per "
             "device (each rank is a local device, not a process)"
         )

@@ -15,16 +15,20 @@ from ray_tpu_torch.exceptions import RayTpuError
 class Backend(str, enum.Enum):
     """Which data plane carries the collective.
 
-    XLA_MESH  — devices visible to this process; ops compile to XLA
-                collectives over ICI (psum / all_gather / ppermute).
-    XLA_DIST  — multi-host jax.distributed; same compiled ops over ICI+DCN.
+    NCCL_MESH — the devices visible to this process, single controller
+                (rank = device): NCCL's single-process collectives
+                (``torch.cuda.nccl``) across distinct GPUs, device-local
+                torch where ranks share one device or lie on the CPU.
+    NCCL      — rank = process: a ``torch.distributed`` process group of
+                the group's own ("nccl" for CUDA tensors by default;
+                "gloo" when the caller asks for it).
     CPU       — host-memory tensors over the runtime RPC (the reference's
                 gloo role, torch_gloo_collective_group.py).
-    AUTO      — XLA_MESH if >1 accelerator device is visible, else CPU.
+    AUTO      — NCCL_MESH if more than one CUDA device is visible, else CPU.
     """
 
-    XLA_MESH = "xla_mesh"
-    XLA_DIST = "xla_dist"
+    NCCL_MESH = "nccl_mesh"
+    NCCL = "nccl"
     CPU = "cpu"
     AUTO = "auto"
 
@@ -159,7 +163,7 @@ class CollectiveWork:
 class FutureCollectiveWork(CollectiveWork):
     """CollectiveWork over a ``concurrent.futures.Future`` — the shape
     both process-backed backends produce (the cpu hub's op coroutine
-    scheduled on the runtime loop; the xla_dist dispatch thread).
+    scheduled on the runtime loop; the nccl group's dispatch thread).
     ``finalize`` runs once on the successful result on the waiter's
     thread (partial-result bookkeeping and similar)."""
 

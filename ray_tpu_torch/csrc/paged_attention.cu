@@ -19,23 +19,29 @@
 //   that starts past the slot's last live page returns at once: the
 //   combine reads the live splits only, so its weight is exactly 0.
 // - Bulk asynchronous copies. With the head-major pool one (page, KV head)
-//   tile is one contiguous run (64 x Dh x 2 bytes in bf16: 16 KB at
-//   Dh 128, 8 KB at 64; the barrier's expected bytes follow), so thread 0
+//   tile is one contiguous run (P x Dh x 2 bytes in bf16), so thread 0
 //   copies each K and V tile with one cp.async.bulk that completes on an
-//   mbarrier; a ring of up to kMaxStages pages is in flight per block. The
-//   tiles stay in the input dtype in shared memory.
+//   mbarrier. A ring stage holds 64 key cells: one 64-token page, or the
+//   64 / P consecutive table entries of smaller pages (8, 16, 32 tokens:
+//   64 / P bulk copies each for K and V, every one a multiple of 16
+//   bytes); a ring of up to kMaxStages stages is in flight per block. The
+//   tiles stay in the input dtype in shared memory. A stage's tail past
+//   the slot's last live page is not copied: its cells lie past every
+//   query position, so they are masked in q.k and skipped in p.v (stale
+//   shared memory is never read into a sum).
 // - CUDA-core products from the tiles. Warp w owns cells 16w..16w+15 of
-//   every page. For q.k, L = 2R lanes share a cell, each holding a slice of
+//   every stage. For q.k, L = 2R lanes share a cell, each holding a slice of
 //   q for all R rows in registers; a reduce-scatter across the L lanes
 //   leaves each lane whole scores (4 flops per byte need no tensor cores,
 //   and the unswizzled bulk-copied tile would make mma fragment loads
 //   conflict 8 ways). For p.v each lane owns Dh / 32 head columns of all
 //   rows (4 at 128, 2 at 64: one 8- or 4-byte read per cell, 32 lanes on
 //   one contiguous row, conflict-free).
-//   One __syncthreads per page: the warps' row maxima meet in shared
+//   One __syncthreads per stage: the warps' row maxima meet in shared
 //   memory, so the running max (and the point where p is rounded to v's
-//   dtype) is the split's, page by page, as in
-//   paged_attention_split_reference.
+//   dtype) is the split's, stage by stage, as in
+//   paged_attention_split_reference (which steps 64 / P pages at a time
+//   for pages under 64 tokens).
 // - One launch. A split with siblings writes its unnormalised fp32 O, m
 //   and l to a workspace; the last block of a (slot, KV head, row block)
 //   to take a ticket combines them: O = sum_s exp(m_s - M) O_s /
@@ -47,7 +53,9 @@
 //   combine.
 //
 // Built for head sizes 64 and 128 (mini's and llama3_8b's) from this one
-// template, and for 64-token pages.
+// template, and for pages of 8, 16, 32 and 64 tokens (the page size is a
+// runtime argument; pages_per_split is a multiple of 64 / P, so a stage
+// never spans two splits).
 
 #include <cstddef>
 #include <cstdint>
@@ -59,15 +67,17 @@ namespace {
 
 constexpr int kThreads = 128;  // 4 warps
 constexpr int kWarps = kThreads / 32;
-constexpr int kPage = 64;      // cells per page: 16 per warp
-constexpr int kMaxStages = 3;  // pages in flight per block
+constexpr int kStage = 64;     // key cells per ring stage: 16 per warp
+constexpr int kMinPage = 8;    // smallest page size built
+constexpr int kMaxSub = kStage / kMinPage;  // pages per stage, at most
+constexpr int kMaxStages = 3;  // stages in flight per block
 
-// Elements of one (page, KV head) tile at head size D.
+// Elements of one ring stage's K (or V) tile at head size D.
 template <int D>
 __host__ __device__ constexpr int tile_elems() {
   static_assert(D == 64 || D == 128, "head sizes 64 and 128 are built");
   static_assert(kThreads % D == 0 && D % 32 == 0, "thread layout");
-  return kPage * D;
+  return kStage * D;
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -163,8 +173,8 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     float* __restrict__ ws_acc,        // [B, groups, n_split, R, Dh]
     float* __restrict__ ws_ml,         // [B, groups, n_split, R, 2]
     int* __restrict__ tickets,         // [B, groups], 0 between calls
-    int kq, int n_heads, int n_kv, int max_pages, int pages_per_split,
-    int stages, float scale) {
+    int kq, int n_heads, int n_kv, int page, int max_pages,
+    int pages_per_split, int stages, float scale) {
   constexpr int kTile = tile_elems<D>();
   constexpr int L = 2 * R;             // lanes per key cell in q.k
   constexpr int G = 32 / L;            // cells per warp per iteration
@@ -192,14 +202,17 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   const int n_rep = n_heads / n_kv;
   const int r_live = min(R, n_rep * kq - r_base);
   const int pos = positions[b];
-  const int lastp = min(max((pos + kq - 1) / kPage, 0), max_pages - 1);
+  const int lastp = min(max((pos + kq - 1) / page, 0), max_pages - 1);
   const int first = split * pages_per_split;
   if (first > lastp) return;  // empty split: weight 0, the combine skips it
-  const int n_pages = min(first + pages_per_split, lastp + 1) - first;
+  const int np = kStage / page;  // table entries per stage
+  const int n_entries = min(first + pages_per_split, lastp + 1) - first;
+  const int n_steps = (n_entries + np - 1) / np;  // ring stages walked
   const int n_live = lastp / pages_per_split + 1;
+  const int ptile = page * D;  // elements of one (page, KV head) tile
 
   extern __shared__ __align__(128) uint8_t smem[];
-  T* ring = reinterpret_cast<T*>(smem);  // [stages][K, V][kPage][D]
+  T* ring = reinterpret_cast<T*>(smem);  // [stages][K, V][kStage][D]
   float* pw = reinterpret_cast<float*>(
       smem + region_bytes<T, D, R>(stages, n_split));  // [kWarps][R][16]
   float* wmax = pw + kWarps * R * 16;               // [2][kWarps][R]
@@ -214,19 +227,32 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   const int cg = lane / L;  // which of the iteration's G cells
   const int* table = tables + (size_t)b * max_pages;
 
-  auto issue = [&](int t) {  // page t of the split into stage t % stages
-    const int page = max(table[first + t], 0);
-    const size_t src = ((size_t)page * n_kv + g) * kTile;
+  // Stage t of the split (table entries first + t * np ..) into ring
+  // slot t % stages: one bulk copy per live page for K and for V.
+  auto issue = [&](int t) {
+    const int e0 = first + t * np;
+    const int n_sub = min(np, n_entries - t * np);
+    int pages[kMaxSub];
+#pragma unroll
+    for (int s = 0; s < kMaxSub; ++s)
+      pages[s] = s < n_sub ? max(table[e0 + s], 0) : 0;
     T* dst = ring + (size_t)(t % stages) * 2 * kTile;
     uint64_t* bar = &bars[t % stages];
-    mbar_expect_tx(bar, 2 * kTile * sizeof(T));
-    bulk_copy(dst, k_pool + src, kTile * sizeof(T), bar);
-    bulk_copy(dst + kTile, v_pool + src, kTile * sizeof(T), bar);
+    const uint32_t bytes = ptile * sizeof(T);
+    mbar_expect_tx(bar, 2 * n_sub * bytes);
+#pragma unroll
+    for (int s = 0; s < kMaxSub; ++s) {
+      if (s < n_sub) {
+        const size_t src = ((size_t)pages[s] * n_kv + g) * ptile;
+        bulk_copy(dst + s * ptile, k_pool + src, bytes, bar);
+        bulk_copy(dst + kTile + s * ptile, v_pool + src, bytes, bar);
+      }
+    }
   };
   if (tid == 0) {
     for (int s = 0; s < stages; ++s) mbar_init(&bars[s]);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    for (int t = 0; t < min(stages, n_pages); ++t) issue(t);
+    for (int t = 0; t < min(stages, n_steps); ++t) issue(t);
   }
 
   // This lane's slice of q for the block's R rows: head elements
@@ -270,14 +296,18 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   float* pwarp = pw + warp * R * 16;
   __syncthreads();  // barriers initialised
 
-  for (int t = 0; t < n_pages; ++t) {
+  for (int t = 0; t < n_steps; ++t) {
     mbar_wait(&bars[t % stages], (t / stages) & 1);
     const T* kt = ring + (size_t)(t % stages) * 2 * kTile + warp * 16 * D;
     const T* vt = kt + kTile;
-    const int key0 = (first + t) * kPage + warp * 16;
+    const int key0 = first * page + t * kStage + warp * 16;
+    // Cells of this warp that were copied (the last stage of a slot may
+    // stop short of 64 cells; the rest lie past every query position).
+    const int n_cells =
+        min(16, max(0, min(np, n_entries - t * np) * page - warp * 16));
 
     // Scores of this warp's 16 cells, scaled after the product, masked
-    // past each row's query position.
+    // past each row's query position and past the copied cells.
     float sc[NB][VPL];
 #pragma unroll
     for (int bi = 0; bi < NB; ++bi) {
@@ -316,7 +346,8 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
       const int cell = (bi * IB + i_local) * G + cg;
 #pragma unroll
       for (int v = 0; v < VPL; ++v)
-        sc[bi][v] = key0 + cell > qpos[v] ? kMask : a[v] * scale;
+        sc[bi][v] = (key0 + cell > qpos[v] || cell >= n_cells)
+                        ? kMask : a[v] * scale;
     }
 
     // Row maxima over this warp's cells, then over the block.
@@ -332,8 +363,8 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
       if (lane < RG) wm[warp * R + r0 + v] = mx;
     }
     __syncthreads();  // maxima visible; every warp is done with page t - 1
-    if (tid == 0 && t >= 1 && t - 1 + stages < n_pages)
-      issue(t - 1 + stages);  // into page t - 1's stage
+    if (tid == 0 && t >= 1 && t - 1 + stages < n_steps)
+      issue(t - 1 + stages);  // into stage t - 1's ring slot
 
 #pragma unroll
     for (int v = 0; v < VPL; ++v) {
@@ -364,7 +395,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     __syncwarp();  // the warp's p visible to all its lanes
 
 #pragma unroll 4
-    for (int c = 0; c < 16; ++c) {
+    for (int c = 0; c < n_cells; ++c) {
       float vv[C];
       load_vec<T, C>(vt + c * D + C * lane, vv);
 #pragma unroll
@@ -494,14 +525,14 @@ template <typename T, int D, int R>
 cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
                    const void* tables, const void* positions, void* out,
                    void* ws_acc, void* ws_ml, void* tickets, int batch,
-                   int kq, int n_heads, int n_kv, int max_pages,
+                   int kq, int n_heads, int n_kv, int page, int max_pages,
                    int pages_per_split, float scale, cudaStream_t stream) {
   const int n_rb = ((n_heads / n_kv) * kq + R - 1) / R;
   const int n_split = (max_pages + pages_per_split - 1) / pages_per_split;
-  // One stage when a split is one page; otherwise at least two, so that
-  // the refill of page t - 1's stage never waits on page t itself.
-  const int stages = pages_per_split < kMaxStages ? pages_per_split
-                                                  : kMaxStages;
+  // One ring slot when a split is one stage; otherwise at least two, so
+  // that the refill of stage t - 1's slot never waits on stage t itself.
+  const int steps = pages_per_split / (kStage / page);
+  const int stages = steps < kMaxStages ? steps : kMaxStages;
   const size_t smem = smem_bytes<T, D, R>(stages, n_split);
   auto kernel = paged_attention_kernel<T, D, R>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -513,7 +544,7 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
       static_cast<const T*>(v_pool), static_cast<const int*>(tables),
       static_cast<const int*>(positions), static_cast<T*>(out),
       static_cast<float*>(ws_acc), static_cast<float*>(ws_ml),
-      static_cast<int*>(tickets), kq, n_heads, n_kv, max_pages,
+      static_cast<int*>(tickets), kq, n_heads, n_kv, page, max_pages,
       pages_per_split, stages, scale);
   return cudaGetLastError();
 }
@@ -521,7 +552,7 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
 struct Args {
   const void *q, *k_pool, *v_pool, *tables, *positions;
   void *out, *ws_acc, *ws_ml, *tickets;
-  int batch, kq, n_heads, n_kv, max_pages, pages_per_split;
+  int batch, kq, n_heads, n_kv, page, max_pages, pages_per_split;
   float scale;
   cudaStream_t stream;
 };
@@ -531,8 +562,8 @@ cudaError_t dispatch(int row_block, const Args& a) {
   auto go = [&](auto kernel_launch) {
     return kernel_launch(a.q, a.k_pool, a.v_pool, a.tables, a.positions,
                          a.out, a.ws_acc, a.ws_ml, a.tickets, a.batch, a.kq,
-                         a.n_heads, a.n_kv, a.max_pages, a.pages_per_split,
-                         a.scale, a.stream);
+                         a.n_heads, a.n_kv, a.page, a.max_pages,
+                         a.pages_per_split, a.scale, a.stream);
   };
   switch (row_block) {
     case 4:
@@ -565,18 +596,21 @@ cudaError_t dispatch_head_dim(int head_dim, int row_block, const Args& a) {
 // row_block and pages_per_split come from the wrapper
 // (ray_tpu_torch/ops/paged_attention.py), which sizes the workspace
 // (ws_acc, ws_ml: fp32; tickets: int32 zeros) from the same numbers.
-// head_dim must be 64 or 128 and page_size 64.
+// head_dim must be 64 or 128, page_size 8, 16, 32 or 64, and
+// pages_per_split a multiple of 64 / page_size.
 extern "C" int rtt_paged_attention(
     int dtype, const void* q, const void* k_pool, const void* v_pool,
     const void* tables, const void* positions, void* out, void* ws_acc,
     void* ws_ml, void* tickets, int batch, int kq, int n_heads, int n_kv,
     int head_dim, int page_size, int max_pages, int row_block,
     int pages_per_split, float scale, void* stream) {
-  if (page_size != rtt::kPage || pages_per_split < 1)
+  if (page_size < rtt::kMinPage || page_size > rtt::kStage ||
+      (page_size & (page_size - 1)) || pages_per_split < 1 ||
+      pages_per_split % (rtt::kStage / page_size))
     return cudaErrorInvalidValue;
   const rtt::Args a{q, k_pool, v_pool, tables, positions, out, ws_acc,
-                    ws_ml, tickets, batch, kq, n_heads, n_kv, max_pages,
-                    pages_per_split, scale,
+                    ws_ml, tickets, batch, kq, n_heads, n_kv, page_size,
+                    max_pages, pages_per_split, scale,
                     static_cast<cudaStream_t>(stream)};
   if (dtype == rtt::kFloat32)
     return rtt::dispatch_head_dim<float>(head_dim, row_block, a);

@@ -11,7 +11,8 @@ is in q's dtype. The kernel is ``csrc/paged_attention.cu``: each slot's
 page walk is split across blocks of ``pages_per_split`` pages, and the
 splits are combined in the same launch (:func:`paged_attention_split_reference`
 is its arithmetic in PyTorch). It is built for head sizes 64 and 128 and
-64-token pages.
+pages of 8, 16, 32 and 64 tokens: a ring stage of the kernel holds 64 key
+cells, one page or 64 / P consecutive table entries.
 
 What bounds it on the H100 is bytes: every live K/V page is read once and
 takes 2 * n_rep * K flops per element. At ``mini``'s decode (12/4 heads of
@@ -33,7 +34,8 @@ from ray_tpu_torch import _build
 _MASK = -1e9
 _M_INIT = -1e30
 KERNEL_HEAD_DIMS = (64, 128)  # the head sizes csrc/paged_attention.cu builds
-KERNEL_PAGE_SIZE = 64  # the one page size it builds (16 cells per warp)
+KERNEL_PAGE_SIZES = (8, 16, 32, 64)  # the page sizes it builds
+_STAGE_CELLS = 64  # key cells per ring stage of the kernel (16 per warp)
 # Blocks to aim for if every slot's table were full. Slots fill a part of
 # their table (the table is sized for max_seq), so this asks for ~2 live
 # blocks per SM at a quarter full; 16 (one page per split at decode batch
@@ -88,9 +90,10 @@ def paged_attention_split_reference(
     pages_per_split: int,
 ) -> torch.Tensor:
     """The kernel's arithmetic at its rounding points: each run of
-    ``pages_per_split`` table entries is one split, walked page by page
-    with an fp32 online softmax (p = exp(s - running max), rounded to v's
-    dtype for the PV product; pages past the slot's last live page are
+    ``pages_per_split`` table entries is one split, walked one stage of
+    the kernel at a time (one page, or 64 / P pages under 64 tokens) with
+    an fp32 online softmax (p = exp(s - running max), rounded to v's
+    dtype for the PV product; stages past the slot's last live page are
     skipped); the splits are then combined in fp32 as
     sum_s exp(m_s - M) acc_s / sum_s exp(m_s - M) l_s, M = max_s m_s (0
     where the sum is 0). An empty split keeps m = -1e30, l = 0, acc = 0,
@@ -106,17 +109,21 @@ def paged_attention_split_reference(
     q_pos = positions.long()[:, None] + torch.arange(rows, device=dev) % kq
     lastp = ((positions.long() + kq - 1) // page_size).clamp(0, max_pages - 1)
     tables = block_tables.clamp(min=0).long()
-    cells = torch.arange(page_size, device=dev)
+    step = max(1, _STAGE_CELLS // page_size)  # pages per stage
     parts = []
     for first in range(0, max_pages, pages_per_split):
         m = torch.full((b, hkv, rows), _M_INIT, device=dev)
         l = torch.zeros((b, hkv, rows), device=dev)
         acc = torch.zeros((b, hkv, rows, dh), device=dev)
-        for ip in range(first, min(first + pages_per_split, max_pages)):
+        end = min(first + pages_per_split, max_pages)
+        for ip in range(first, end, step):
+            ips = tables[:, ip:min(ip + step, end)]  # [B, n]
             live = (ip <= lastp)[:, None, None]  # [B, 1, 1]
-            kt = k_pool[tables[:, ip]].float()  # [B, Hkv, P, Dh]
-            vt = v_pool[tables[:, ip]]
+            # [B, n, Hkv, P, Dh] -> [B, Hkv, n * P, Dh]
+            kt = k_pool[ips].float().transpose(1, 2).flatten(2, 3)
+            vt = v_pool[ips].transpose(1, 2).flatten(2, 3)
             s = torch.einsum("bgrd,bgcd->bgrc", qg, kt) * dh**-0.5
+            cells = torch.arange(kt.shape[2], device=dev)
             hidden = (ip * page_size + cells)[None, None] > q_pos[:, :, None]
             s = s.masked_fill(hidden[:, None], _MASK)
             m_new = torch.maximum(m, s.amax(dim=-1))
@@ -147,18 +154,21 @@ def row_block(rows: int) -> int:
 
 
 def pages_per_split(batch: int, groups: int, max_pages: int,
-                    sm_count: int) -> int:
+                    sm_count: int, page_size: int = 64) -> int:
     """Table entries per split, from static quantities only (never the
     positions, which would cost a host sync): enough splits that a full
     table gives ``_BLOCKS_PER_SM`` blocks per SM over the ``batch x
-    groups`` (slot, KV head x row block) pairs, at most one per page."""
+    groups`` (slot, KV head x row block) pairs, at most one per kernel
+    stage; rounded up to whole stages (64 / page_size pages each)."""
+    step = max(1, _STAGE_CELLS // page_size)
     n_split = min(max_pages, -(-_BLOCKS_PER_SM * sm_count // (batch * groups)))
-    return -(-max_pages // max(n_split, 1))
+    pps = -(-max_pages // max(n_split, 1))
+    return -(-pps // step) * step
 
 
 @functools.cache
 def _launch_plan(device: torch.device, b: int, kq: int, n_heads: int,
-                 hkv: int, max_pages: int, dh: int):
+                 hkv: int, max_pages: int, dh: int, page_size: int):
     """Row block, pages per split and workspace of one launch shape. The
     workspace holds the splits' fp32 partial O and (m, l) and one int32
     ticket per (slot, KV head x row block), zero between calls (the
@@ -168,7 +178,7 @@ def _launch_plan(device: torch.device, b: int, kq: int, n_heads: int,
     rb = row_block(rows)
     groups = hkv * -(-rows // rb)
     sm_count = torch.cuda.get_device_properties(device).multi_processor_count
-    pps = pages_per_split(b, groups, max_pages, sm_count)
+    pps = pages_per_split(b, groups, max_pages, sm_count, page_size)
     n_part = b * groups * -(-max_pages // pps) * rb
     workspace = (
         torch.empty(n_part * dh, dtype=torch.float32, device=device),
@@ -185,7 +195,7 @@ def kernel_split(q: torch.Tensor, k_pool: torch.Tensor,
     it)."""
     b, kq, n_heads, dh = q.shape
     return _launch_plan(q.device, b, kq, n_heads, k_pool.shape[1],
-                        block_tables.shape[1], dh)[1]
+                        block_tables.shape[1], dh, k_pool.shape[2])[1]
 
 
 @functools.cache
@@ -236,11 +246,11 @@ def paged_attention(
             f"paged_attention: shapes q {tuple(q.shape)}, pools "
             f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)} do not match"
         )
-    if dh not in KERNEL_HEAD_DIMS or page_size != KERNEL_PAGE_SIZE:
+    if dh not in KERNEL_HEAD_DIMS or page_size not in KERNEL_PAGE_SIZES:
         raise ValueError(
             f"paged_attention: the kernel is built for head_dim in "
-            f"{KERNEL_HEAD_DIMS} and {KERNEL_PAGE_SIZE}-token pages, got "
-            f"{dh} and {page_size}"
+            f"{KERNEL_HEAD_DIMS} and page sizes in {KERNEL_PAGE_SIZES}, "
+            f"got {dh} and {page_size}"
         )
     if (block_tables.dtype != torch.int32 or positions.dtype != torch.int32
             or block_tables.dim() != 2 or block_tables.shape[0] != b
@@ -256,7 +266,7 @@ def paged_attention(
     code = _build.dtype_code(q.dtype)
     max_pages = block_tables.shape[1]
     rb, pps, (ws_acc, ws_ml, tickets) = _launch_plan(
-        q.device, b, kq, n_heads, hkv, max_pages, dh
+        q.device, b, kq, n_heads, hkv, max_pages, dh, page_size
     )
     out = torch.empty_like(q)
     err = _kernel()(

@@ -5,6 +5,8 @@ NVIDIA GPU.
     python3 sharded_chip.py gloo           # which gloo collectives carry CUDA tensors
     python3 sharded_chip.py kernel-faults  # phase 8a's limits: sound and planted readings
     python3 sharded_chip.py train-faults   # phase 8b's limits: sound and planted readings
+    python3 sharded_chip.py nccl           # whether NCCL takes two ranks on one card
+    python3 sharded_chip.py nccl-ranks     # the NCCL routes (needs 2+ cards)
 
 ``gloo`` runs each collective in a fresh pair of processes (rank 0 and
 rank 1 on cuda:0, a gloo process group over a ``file://`` rendezvous), so
@@ -13,6 +15,22 @@ the values rank 0 saw, or the exit codes and the last line the ranks wrote
 to standard error. ray_tpu_torch/parallel/collectives.py copies CUDA
 tensors through host memory for a point-to-point send on a gloo group;
 this is the record of why.
+
+``nccl`` asks NCCL for two ranks on the one card, twice: in one process
+through ``torch.cuda.nccl`` (the route NcclMeshGroup takes across distinct
+GPUs), and as two processes of a ``ProcessGroupNCCL`` over a TCPStore
+(the route NcclDistGroup takes), and prints each answer. chip_smoke.py
+runs its ranks that share the card on the mesh group's device-local route
+and NCCL at world 1; this is the record of why.
+
+``nccl-ranks`` needs two or more cards: it runs chip_smoke.py's phase 11a
+and 11b with one NcclMeshGroup rank per card (the torch.cuda.nccl route:
+every verb against CPU ranks, the bench preset's gradient tree synced
+through GradBucketer and timed), then one process per card in a
+NcclDistGroup on NCCL (every verb against numpy, partial mode with a late
+rank, int8, async, a CUDA send/recv), and times a 256 MiB allreduce on
+NCCL (bus bandwidth, nccl-tests' convention). Exits non-zero on any
+failed check.
 
 ``kernel-faults`` runs phase 8a's checks of F1, F2 and P1 at a tp rank's
 head layouts (chip_smoke.TP_FLASH, chip_smoke.TP_PAGED) on the sound
@@ -147,6 +165,209 @@ def gloo() -> int:
             print(f"{name}: failed, exit codes {codes}: {last[:300]}",
                   flush=True)
     return 0
+
+
+def _nccl_rank(rank, port, result):
+    import datetime
+
+    store = dist.TCPStore("127.0.0.1", port, 2, rank == 0,
+                          datetime.timedelta(seconds=30))
+    try:
+        opts = dist.ProcessGroupNCCL.Options()
+        opts._timeout = datetime.timedelta(seconds=30)
+        pg = dist.ProcessGroupNCCL(store, rank, 2, opts)
+        t = torch.full((4,), float(rank + 1), device="cuda:0")
+        ar = dist.AllreduceOptions()
+        ar.reduceOp = dist.ReduceOp.SUM
+        pg.allreduce([t], ar).wait()
+        torch.cuda.synchronize()
+        result.put((rank, f"accepted: {t.tolist()}"))
+    except Exception as e:  # noqa: BLE001 - the answer is the result
+        result.put((rank, f"refused: {type(e).__name__}: "
+                    + " ".join(str(e).split())[:300]))
+
+
+def nccl() -> int:
+    import socket
+
+    from torch.cuda import nccl as tnccl
+
+    try:
+        pair = [torch.ones(4, device="cuda:0"), torch.ones(4, device="cuda:0")]
+        tnccl.all_reduce(pair)
+        torch.cuda.synchronize()
+        print(f"torch.cuda.nccl, two ranks on cuda:0: accepted "
+              f"{pair[0].tolist()}", flush=True)
+    except Exception as e:  # noqa: BLE001 - the answer is the result
+        print(f"torch.cuda.nccl, two ranks on cuda:0: refused: "
+              f"{type(e).__name__}: {e}", flush=True)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    result = ctx.Queue()
+    procs = [ctx.Process(target=_nccl_rank, args=(r, port, result))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=120)
+        if p.is_alive():
+            p.kill()
+            p.join()
+    answers = {}
+    while not result.empty():
+        rank, text = result.get()
+        answers[rank] = text
+    for r in range(2):
+        print(f"ProcessGroupNCCL, two processes on cuda:0, rank {r} (exit "
+              f"{procs[r].exitcode}): {answers.get(r, 'no answer')}",
+              flush=True)
+    return 0
+
+
+NCCL_RANK_ROWS = 16  # rows per rank of the dist verbs' inputs
+ALLREDUCE_BYTES = 256 << 20  # the timed NCCL allreduce's payload
+
+
+def _nccl_dist_rank(rank, world, port, result):
+    import asyncio
+    import datetime
+    import time
+
+    import numpy as np
+
+    from ray_tpu_torch.collective.backends.nccl_group import NcclDistGroup
+    from ray_tpu_torch.collective.types import ReduceOp
+
+    torch.cuda.set_device(rank)
+    fails = []
+    try:
+        store = dist.TCPStore("127.0.0.1", port, world, rank == 0,
+                              datetime.timedelta(seconds=60))
+        g = NcclDistGroup(world, rank, timeout_s=60, name="ranks",
+                          store=store, dist_backend="nccl")
+        shape = (world * NCCL_RANK_ROWS, 33)
+        xs = [np.random.default_rng(r).normal(size=shape).astype(np.float32)
+              for r in range(world)]
+        ints = [np.random.default_rng(100 + r).integers(-8, 9, size=shape)
+                .astype(np.float32) for r in range(world)]
+        x, xi = (torch.from_numpy(a[rank]).cuda() for a in (xs, ints))
+        total, total_i = sum(xs), sum(ints)
+        rows = slice(rank * NCCL_RANK_ROWS, (rank + 1) * NCCL_RANK_ROWS)
+
+        def chk(name, got, want, tol=1e-5):
+            ok = (got.is_cuda and tuple(got.shape) == want.shape
+                  and np.allclose(got.cpu().numpy(), want, rtol=tol,
+                                  atol=tol))
+            if not ok:
+                fails.append(name)
+
+        chk("allreduce", g.allreduce(x), total)
+        chk("allreduce ints", g.allreduce(xi), total_i, 0)
+        chk("allreduce max", g.allreduce(xi, op=ReduceOp.MAX),
+            np.max(ints, axis=0), 0)
+        chk("allreduce ring", g.allreduce(x, algo="ring"), total)
+        chk("allreduce tree", g.allreduce(x, algo="tree"), total)
+        chk("allgather", g.allgather(xi), np.concatenate(ints), 0)
+        chk("reducescatter", g.reducescatter(xi), total_i[rows], 0)
+        chk("reducescatter tree", g.reducescatter(xi, algo="tree"),
+            total_i[rows], 0)
+        chk("broadcast", g.broadcast(xi, root=world - 1), ints[-1], 0)
+        part = g.allreduce(x, min_ranks=1, grace_s=30.0)
+        chk("partial, all in time", part.value, total)
+        if part.skipped:
+            fails.append(f"partial skipped {part.skipped}")
+        g.barrier()
+        if rank == world - 1:
+            time.sleep(1.0)
+        part = g.allreduce(x, min_ranks=1, grace_s=0.3)
+        chk("partial, last rank late", part.value,
+            sum(xs[:-1]) * (world / (world - 1)), 1e-4)
+        if part.skipped != [world - 1]:
+            fails.append(f"late rank not skipped: {part.skipped}")
+        bound = 2 * np.abs(total).max() / 127
+        chk("allreduce int8", g.allreduce(x, compression="int8"), total,
+            bound)
+        chk("reducescatter int8", g.reducescatter(x, compression="int8"),
+            total[rows], bound)
+        chk("allgather int8", g.allgather(x, compression="int8"),
+            np.concatenate(xs), 2 * max(np.abs(a).max() for a in xs) / 127)
+        work = g.allreduce_async(x)
+        chk("allreduce_async", work.wait(), total)
+        if rank == 0:
+            asyncio.run(g.send(x, 1, seq=7))
+        elif rank == 1:
+            chk("send/recv", asyncio.run(g.recv(0, seq=7)), xs[0], 0)
+        g.barrier()
+        big = torch.ones(ALLREDUCE_BYTES // 4, device="cuda")
+        for _ in range(3):
+            g.allreduce(big)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        iters = 10
+        for _ in range(iters):
+            g.allreduce(big)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / iters * 1e3
+        if g.last_route != "nccl":
+            fails.append(f"route {g.last_route}")
+        asyncio.run(g.destroy())
+        result.put((rank, fails, ms))
+    except Exception as e:  # noqa: BLE001 - reported, and the mode fails
+        result.put((rank, fails + [f"{type(e).__name__}: {e}"], None))
+
+
+def nccl_ranks() -> int:
+    import socket
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"nccl-ranks needs two or more cards, this machine has {n}")
+        return 1
+    devices = tuple(f"cuda:{i}" for i in range(n))
+    bad = []
+    try:
+        # NCCL sums bf16 in its own order: a few bf16 steps apart.
+        card, worst = cs.mesh_verbs(0, devices=devices, route="nccl",
+                                    bf16_steps=4)
+        print(f"mesh group, {n} cards: {worst}", flush=True)
+        sync = cs.bucket_sync(card, 0)
+        print(f"GradBucketer on {n} cards: {sync}", flush=True)
+    except cs.SmokeFailure as e:
+        bad.append(f"mesh: {e}")
+        print(f"mesh group FAILED: {e}", flush=True)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    result = ctx.Queue()
+    procs = [ctx.Process(target=_nccl_dist_rank, args=(r, n, port, result))
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    got = {}
+    for _ in range(n):
+        try:
+            rank, fails, ms = result.get(timeout=300)
+        except Exception:  # noqa: BLE001 - a rank that never answered
+            break
+        got[rank] = (fails, ms)
+    for p in procs:
+        p.join(timeout=60)
+        if p.is_alive():
+            p.kill()
+            p.join()
+    for r in range(n):
+        fails, ms = got.get(r, (["no answer"], None))
+        bus = (2 * (n - 1) / n * ALLREDUCE_BYTES / (ms * 1e-3) / 1e9
+               if ms else float("nan"))
+        print(f"NcclDistGroup rank {r} of {n} on NCCL: failures {fails}; "
+              f"{ALLREDUCE_BYTES} B allreduce {ms} ms, bus bandwidth "
+              f"{bus:.1f} GB/s", flush=True)
+        bad += [f"rank {r}: {f}" for f in fails]
+    print(f"failures: {bad}")
+    return 1 if bad else 0
 
 
 # --------------------------------------------------------- kernel faults
@@ -456,14 +677,16 @@ def train_faults(seed=0) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("what", choices=("gloo", "kernel-faults",
-                                     "train-faults"))
+                                     "train-faults", "nccl",
+                                     "nccl-ranks"))
     what = ap.parse_args().what
     if not torch.cuda.is_available():
         print("sharded_chip: no CUDA device", file=sys.stderr)
         return 1
     print(cs.card_line())
     return {"gloo": gloo, "kernel-faults": kernel_faults,
-            "train-faults": train_faults}[what]()
+            "train-faults": train_faults, "nccl": nccl,
+            "nccl-ranks": nccl_ranks}[what]()
 
 
 if __name__ == "__main__":

@@ -128,7 +128,13 @@ def test_port_imports_neither_jax_nor_ray_tpu():
                  "runtime/object_store.py", "runtime/runtime_env.py",
                  "runtime/transfer.py", "runtime/worker_main.py",
                  "util/metrics.py", "util/rpdb.py",
-                 "util/scheduling_strategies.py", "util/tracing.py"):
+                 "util/scheduling_strategies.py", "util/tracing.py",
+                 "collective/algo.py", "collective/bucketer.py",
+                 "collective/codec.py", "collective/flight_recorder.py",
+                 "collective/backends/cpu_group.py",
+                 "collective/backends/nccl_group.py",
+                 "experimental/collective.py",
+                 "experimental/tensor_transport.py"):
         assert REPO / "ray_tpu_torch" / name in files, name
     bad = []
     for path in files:

@@ -153,6 +153,58 @@ def test_pages_per_split_from_static_shapes(batch, groups, max_pages, want):
     assert n_split * pps >= max_pages > (n_split - 1) * pps
 
 
+@pytest.mark.parametrize(
+    "k,dh,p,positions",
+    [
+        # decode over pages of 8, 16 and 32 tokens: a kernel stage holds
+        # 64 / P pages, the last one cut short at each slot's frontier
+        (1, 64, 8, [0, 7, 63, 64, 201]),
+        (1, 128, 16, [15, 16, 100, 255, 2]),
+        (1, 64, 32, [31, 32, 190, 63, 0]),
+        # verify K=4 across page and stage boundaries
+        (4, 128, 8, [60, 61, 62, 125, 5]),
+        (4, 64, 16, [61, 62, 126, 13, 200]),
+        (4, 128, 32, [29, 62, 127, 0, 180]),
+    ],
+)
+@pytest.mark.parametrize("wide", [False, True])
+def test_split_small_pages_match_reference_kernel(k, dh, p, positions, wide):
+    """Pages under 64 tokens at the split the wrapper launches with on a
+    132-SM card (whole stages of 64 cells), and at a split of two stages
+    (``wide``), stale cells poisoned past each frontier."""
+    b, h, hkv = len(positions), 8, 2
+    maxp = 256 // p
+    args = _case(13, b, k, h, hkv, dh, p, maxp, positions, poison=True)
+    rows = h // hkv * k
+    groups = hkv * -(-rows // row_block(rows))
+    step = 64 // p
+    pps = (2 * step if wide
+           else pages_per_split(b, groups, maxp, sm_count=132, page_size=p))
+    assert pps % step == 0
+    clean = _case(13, b, k, h, hkv, dh, p, maxp, positions)
+    want = _run(clean, hkv, pps)[2]
+    split, single, _ = _run(args, hkv, pps)
+    np.testing.assert_allclose(split, want, **TOL)
+    np.testing.assert_allclose(single, want, **TOL)
+
+
+@pytest.mark.parametrize(
+    "batch,groups,max_pages,page_size,want",
+    [
+        (8, 8, 256, 8, 16),    # 2048 tokens of 8: two stages per split
+        (8, 8, 128, 16, 8),    # two stages of 4 pages
+        (8, 8, 64, 32, 4),
+        (64, 8, 128, 16, 44),  # 43 pages rounded up to whole stages
+        (1, 1, 3, 16, 4),      # one stage, past the table's end
+    ],
+)
+def test_pages_per_split_counts_whole_stages(batch, groups, max_pages,
+                                             page_size, want):
+    pps = pages_per_split(batch, groups, max_pages, sm_count=132,
+                          page_size=page_size)
+    assert pps == want and pps % (64 // page_size) == 0
+
+
 @pytest.mark.parametrize("rows,want", [(1, 4), (4, 4), (5, 8), (8, 8),
                                        (16, 16), (32, 16)])
 def test_row_block(rows, want):

@@ -33,7 +33,10 @@ COPIED = (
     "_private/rpc.py",
     "_private/test_utils.py",
     "_private/accelerators/accelerator.py",
-    "collective/types.py",
+    "collective/backends/__init__.py",
+    "collective/flight_recorder.py",
+    "experimental/__init__.py",
+    "experimental/tensor_transport.py",
     "runtime/__init__.py",
     "runtime/agent.py",
     "runtime/core_worker.py",
@@ -93,8 +96,51 @@ PORTED = {
         {"_load"},
     ),
     "collective/__init__.py": (
-        "AUTO picks the multi-device backend from torch.cuda's device count",
-        {"_resolve_backend"},
+        "the NCCL backends replace the XLA ones: AUTO reads torch.cuda's "
+        "device count, init_collective_group builds NcclMeshGroup / "
+        "NcclDistGroup (dist_backend, devices)",
+        {"_resolve_backend", "init_collective_group", "_dispatch",
+         "_dispatch_async"},
+    ),
+    "collective/types.py": (
+        "Backend names the NCCL data planes (nccl_mesh, nccl)",
+        {"Backend"},
+    ),
+    "collective/codec.py": (
+        "the jax half becomes a torch half on tensors of any device; the "
+        "residual and error feedback keep a tensor on its device",
+        {"is_tensor", "quantization_residual", "ErrorFeedback",
+         "quantize_jax", "quantize_blocked_jax", "dequantize_jax",
+         "wire_nbytes_jax", "quantize_torch", "quantize_blocked_torch",
+         "dequantize_torch", "wire_nbytes_torch"},
+    ),
+    "collective/algo.py": (
+        "the hierarchical allreduce is eager torch over per-rank tensors "
+        "(no compiled program cache), with its own slice-device shim",
+        {"_HIER_PROGRAMS", "hierarchical_allreduce", "_hier_masked_fn",
+         "_hier_masked", "SliceDevice", "fake_slice_devices", "device_of"},
+    ),
+    "collective/bucketer.py": (
+        "leaves may be torch tensors (buckets built on their device), "
+        "trees flatten without jax, and the analytic cost reads NVLink",
+        {"import sys", "bucket_analytic_cost_s", "LINK_BANDWIDTH",
+         "link_bandwidth_per_gpu", "collective_wire_factor", "_leaf", "_dtype_key", "_itemsize", "_numel", "_floating",
+         "_concat", "_contiguous", "_zeros", "_zeros_of",
+         "_tree_flatten_with_keys", "_tree_unflatten", "PendingSync",
+         "BucketStream", "PendingZeroGather", "PendingZeroSync",
+         "GradBucketer"},
+    ),
+    "collective/backends/cpu_group.py": (
+        "payloads may be torch tensors: reduced with torch on the device "
+        "they arrive on, results back on the caller's device",
+        {"import sys", "_REDUCERS", "_COMBINERS", "_as_payload", "_reducer", "_combiner", "_acc_dtype", "_as",
+         "_array_split", "_zeros", "_concat", "_numel", "_on_device",
+         "_compress", "_dequantize_wire", "_decompress", "_contrib_array",
+         "CpuGroup"},
+    ),
+    "experimental/collective.py": (
+        "create_collective_group passes a nccl group's dist_backend",
+        {"_group_init", "create_collective_group"},
     ),
     "runtime/node.py": (
         "node labels come from the accelerator registry only: no GCE "
@@ -128,8 +174,6 @@ MISSING = {
     "ray_tpu_torch._private.lint",
     "ray_tpu_torch.autoscaler",
     "ray_tpu_torch.checkpoint",
-    "ray_tpu_torch.collective.algo",
-    "ray_tpu_torch.collective.backends",
     "ray_tpu_torch.dag",
     "ray_tpu_torch.serve",
     "ray_tpu_torch.train.profile",
