@@ -13,8 +13,10 @@ Phase 1  holds each kernel against its plain PyTorch versions on the card:
          K = 1 and 4, an inactive slot, a wider table, K = 4 one to three
          cells before a split boundary, batch 1 and 4 at up to 16k tokens
          in 256-page tables, poisoned cells past every slot's frontier;
-         pages of 8, 16 and 32 tokens at both head layouts, decode and
-         verify at page and stage boundaries, batch 64;
+         pages of 8, 16 and 32 tokens and of 4, 12, 48 and 128 (any page
+         size: whole pages per 64-cell stage, or a page over several
+         stages) at both head layouts, decode and verify at page and
+         stage boundaries, batch 64;
          bf16 held to the split plain version at the wrapper's split by
          PAGED_BF16_TOL and PAGED_BF16_NORM, and to the one-block plain
          version at 2e-2), the flash forward (O and LSE,
@@ -32,8 +34,8 @@ Phase 1  holds each kernel against its plain PyTorch versions on the card:
          at mini's 12 / 4 heads of 64 (its dense prefill's 1024 tokens,
          S = 1000 and 200), and in bf16 at the bench_8b.py recipe's B=2
          S=4096 with 32 / 8 heads of 128; a head_dim of 96 must be
-         refused by all three kernels, and pages of 4, 48 and 128 tokens
-         by P1's wrapper and its C entry point.
+         refused by all three kernels, and P1's C entry point must refuse
+         a split that is not whole stages and a page of 0 tokens.
 Phase 2  serves 8 requests on a paged LLMEngine at full llama3_8b width
          and depth (random bf16 weights from a seed), greedy, then 8
          repetitive prompts with speculate=3; checks the paged kernel's
@@ -45,7 +47,8 @@ Phase 2  serves 8 requests on a paged LLMEngine at full llama3_8b width
          token stream to the plain path's, teacher-forced
          (stream_check). The greedy pass again on engines of 16- and
          32-token pages (one P1 launch per layer per step, streams held
-         by stream_check). Then the same for mini at full width and depth
+         by stream_check), and on an engine of 4-token pages. Then the
+         same for mini at full width and depth
          (12 layers, head_dim 64), and its greedy pass at 16-token
          pages.
 Phase 3  serves one 1024-token prompt on a dense LLMEngine; checks that
@@ -160,6 +163,23 @@ Phase 11 the collective data plane and the device-object transport:
          (d) one of them returns a 256 MiB CUDA tensor under
          tensor_transport and the other gets it, over the RPC fetch and
          over the group's send/recv: bits equal, seconds and GB/s.
+Phase 12 the Train library on the runtime: (a) phase 7's bench state
+         (4.446 GB) saved through checkpoint.AsyncCheckpointer into the
+         shard store (the seconds save() stalls the caller beside phase
+         7's torch.save, the background persist's seconds, logical and
+         written bytes), again after one step (the dedup ratio), and
+         restored into a fresh state bit for bit; (b) TorchTrainer with
+         one GPU worker trains the bench preset 3 steps, checkpointing
+         through report(checkpoint=uri), and a second fit resumes from
+         the store for steps 4-6: losses within 2^-8 relative of an
+         uninterrupted 6-step run, 24 F1 + 24 F2 launches per step,
+         tokens/s through the trainer and the controller's seconds per
+         step; (c) TorchTrainer with two half-GPU workers over gloo on
+         an fsdp=2 mesh: (a)'s checkpoint restored resharded (each local
+         shard bit for bit its slice of the saved leaf), phase 8b's two
+         fsdp=2 steps (losses and gradient norms within
+         TWO_RANK_LOSS_REL / TWO_RANK_NORM_REL of one process), and the
+         state checkpointed from both ranks and restored whole.
 Timing   each kernel at the main path's shapes (CUDA events, cold L2):
          its time, its plain version's, its bound (P1 also at the verify
          step's K = 4 and at batch 64, on lines of their own), and for the flash
@@ -168,9 +188,10 @@ Timing   each kernel at the main path's shapes (CUDA events, cold L2):
 
 Prints a ``{"kernels": [...]}`` line (the paged kernel twice,
 "paged_attention" at llama3_8b's first decode step and
-"paged_attention_d64" at mini's, "paged_attention_p16" and
-"paged_attention_p32" at llama3_8b's first decode step with 16- and
-32-token pages, launches from phase 2's runs at those pages; the flash
+"paged_attention_d64" at mini's, "paged_attention_p16",
+"paged_attention_p32" and "paged_attention_p4" at llama3_8b's first decode
+step with 16-, 32- and 4-token pages, launches from phase 2's runs at
+those pages; the flash
 forward three times:
 "flash_fwd" at the prefill's shape, "flash_fwd_train" at the bench
 training step's, "flash_fwd_train_d64" at moe_bench's; the backward twice,
@@ -210,9 +231,11 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 NVLINK_BYTES_PER_S = 450e9  # one way per H100 SXM (NVLink 4, data sheet)
-# The page sizes under 64 tokens P1 is built for (phase 1 holds each to
-# its plain versions; phase 2 serves both models at 16 and llama3_8b at 32).
-SMALL_PAGES = (8, 16, 32)
+# Page sizes other than 64 that phase 1 holds P1 to its plain versions at:
+# whole pages per 64-cell stage (4: 16 pages; 8, 16, 32; 12: five pages,
+# 60 cells; 48: one page, 48 cells) and a page over two stages (128).
+# Phase 2 serves both models at 16, llama3_8b at 32 and at 4.
+OTHER_PAGES = (4, 8, 12, 16, 32, 48, 128)
 
 # The bf16 flash kernels against their plain versions. Both sides round at
 # the same points (q pre-scaled, p and ds to bf16 before their products)
@@ -235,7 +258,7 @@ FLASH_BF16_NORM = 5e-3  # limit of ||got - want|| / ||want||
 # two orders of magnitude (paged_attention_chip.py mutants).
 PAGED_BF16_TOL = (2e-4, 1e-2)  # atol, rtol per element
 PAGED_BF16_NORM = 1e-3  # limit of ||got - want|| / ||want||
-# Pages of 8, 16 and 32 tokens (phase 1's SMALL_PAGES cases) hold the bf16
+# Pages other than 64 tokens (phase 1's OTHER_PAGES cases) hold the bf16
 # kernel to the plain version in fp32 on the same bf16 inputs
 # (PAGED_ORACLE_TOL, PAGED_ORACLE_NORM, as phase 8a does) and to the split
 # plain version by PAGED_BF16_NORM; the split version's own distance from
@@ -466,10 +489,12 @@ def paged_checks(device="cuda", heads=(32, 8, 128), oracle=False,
                       lengths.tolist(), 256, ()))
     cases = [c + (64,) for c in cases]
     # Pages of 8, 16 and 32 tokens (a kernel stage holds 64 / P of them;
-    # the last one of a slot is cut short), tables of max_seq 2048: decode
+    # the last one of a slot is cut short) and of 4, 12, 48 and 128 (16
+    # pages per stage; five pages, every stage 60 of 64 cells; one page of
+    # 48 cells; a page over two stages), tables of max_seq 2048: decode
     # and verify at page and stage boundaries, and a long slot.
-    for page in SMALL_PAGES if per_page is not None else ():
-        n = 2048 // page
+    for page in OTHER_PAGES if per_page is not None else ():
+        n = -(-2048 // page)
         cases.append((f"P={page} B=8 K=1", 8, 1,
                       [0, page - 1, page, 63, 64, 900, 1500, 2040], n, (),
                       page))
@@ -492,7 +517,7 @@ def paged_checks(device="cuda", heads=(32, 8, 128), oracle=False,
             sync()
             name = f"paged H={h}/{hkv} D={dh} {label} {str(dtype)[6:]}"
             if dtype == torch.bfloat16:
-                if oracle or page < 64:
+                if oracle or page != 64:
                     atol, rtol = PAGED_ORACLE_TOL
                     want = paged_attention_reference(
                         *(t.float() for t in args[:3]), *args[3:])
@@ -500,7 +525,7 @@ def paged_checks(device="cuda", heads=(32, 8, 128), oracle=False,
                                 PAGED_ORACLE_NORM)
                     print(f"    plain bf16 (split) vs fp32: "
                           f"{distance(split, want, rtol)}")
-                    if page < 64:
+                    if page != 64:
                         compare(f"{name} vs split ({pps} pages/split), "
                                 f"by norm", got, split, 1.0, 0.0,
                                 PAGED_BF16_NORM)
@@ -510,7 +535,7 @@ def paged_checks(device="cuda", heads=(32, 8, 128), oracle=False,
                     e = compare(f"{name} vs split ({pps} pages/split)", got,
                                 split, atol, rtol, PAGED_BF16_NORM)
                     compare(f"{name} vs one block", got, single, 2e-2, 2e-2)
-                if page < 64:
+                if page != 64:
                     per_page[page] = max(per_page.get(page, 0.0), e)
                     continue
                 err = (got.float() - want.float()).abs()
@@ -617,33 +642,23 @@ def head_dim_refused():
     check(p_err != 0, "rtt_paged_attention accepted head_dim 96")
     print(f"  head_dim 96: the three wrappers raise, rtt_flash_fwd returns "
           f"{err}, rtt_paged_attention {p_err}")
-    # Page sizes the kernel is not built for: the wrapper raises naming
-    # the built sizes, the C entry point refuses them, and a split that is
-    # not whole stages.
+    # The C entry point refuses a split that is not whole stages (page 4:
+    # 16 pages per stage; page 12: 5) and a page size of 0; the wrapper
+    # takes every page size (phase 1's cases).
     pq = torch.zeros((2, 1, 8, 128), dtype=torch.bfloat16, device="cuda")
-    for page in (4, 48, 128):
-        pool = torch.zeros((3, 2, page, 128), dtype=torch.bfloat16,
-                           device="cuda")
-        try:
-            pa.paged_attention(pq, pool, pool, tables, pos)
-        except ValueError as e:
-            check(str(pa.KERNEL_PAGE_SIZES) in str(e),
-                  f"page {page} refused without naming the sizes: {e}")
-        else:
-            raise SmokeFailure(f"a {page}-token page pool was not refused")
+    pool = torch.zeros((3, 2, 4, 128), dtype=torch.bfloat16, device="cuda")
     codes = []
-    for page, pps in ((4, 16), (48, 1), (16, 3)):
+    for page, pps in ((4, 3), (12, 4), (16, 3), (0, 1)):
         codes.append(pa._kernel()(
             1, pq.data_ptr(), pool.data_ptr(), pool.data_ptr(),
             tables.data_ptr(), pos.data_ptr(), pq.data_ptr(), ws.data_ptr(),
             ws.data_ptr(), ws.data_ptr(), 2, 1, 8, 2, 128, page, 2, 4, pps,
             128**-0.5, stream))
     check(all(c != 0 for c in codes),
-          f"rtt_paged_attention accepted a page it is not built for: "
-          f"{codes}")
-    print(f"  pages of 4, 48 and 128 tokens: the wrapper raises; "
-          f"rtt_paged_attention returns {codes} for page 4, 48, and 16 "
-          f"with 3 pages per split (not whole stages)")
+          f"rtt_paged_attention accepted a split of part of a stage or a "
+          f"page of 0 tokens: {codes}")
+    print(f"  rtt_paged_attention returns {codes} for page 4 with 3 pages "
+          f"per split, 12 with 4, 16 with 3 (not whole stages) and page 0")
 
 
 def flash_inputs(b, s, dtype, seed, h=8, hkv=4, d=128, device="cuda"):
@@ -975,11 +990,11 @@ def stream_check(cfg, params, prompts, outs, label, device="cuda"):
 
 def page_variants(cfg, params, seed, p2, pages, name, max_seq=2048):
     """Phase 2's greedy pass again on paged engines of smaller pages
-    (P1 walks 64 / P pages per stage): each page size's P1 launches must be
-    one per layer per decode step, no page may leak, and every stream is
-    held to the plain path (stream_check); how many streams equal the
-    64-token run's is printed (bf16 rounds differently along another page
-    walk, so a near-tie may flip)."""
+    (P1 walks floor(64 / P) pages per stage): each page size's P1
+    launches must be one per layer per decode step, no page may leak, and
+    every stream is held to the plain path (stream_check); how many
+    streams equal the 64-token run's is printed (bf16 rounds differently
+    along another page walk, so a near-tie may flip)."""
     from ray_tpu_torch.llm.engine import LLMEngine, SamplingParams
 
     out = {}
@@ -1846,14 +1861,15 @@ def rank_serve(seed, tp):
     return out
 
 
-def rank_train(seed, sizes, batch=16, seq=2048, steps=2, cfg=None):
+def rank_train(seed, sizes, batch=16, seq=2048, steps=2, cfg=None,
+               keep_state=False):
     """One rank of the first ``steps`` train steps of ``cfg`` (by default
     the bench preset with flash attention) under mesh ``sizes`` (axis
     sizes for make_mesh, or a function that builds the mesh; None: one
     process, no mesh): phase 4's weights (from the seed) and batch (the
     whole batch; the step cuts it over the data axes), phase 4's
     optimizer with no warm-up (the first update at the full learning
-    rate)."""
+    rate). ``keep_state`` returns the state too (phase 12c saves it)."""
     from ray_tpu_torch.models.llama import PRESETS
     from ray_tpu_torch.parallel.mesh import make_mesh
     from ray_tpu_torch.train.step import (
@@ -1888,6 +1904,8 @@ def rank_train(seed, sizes, batch=16, seq=2048, steps=2, cfg=None):
     _, f1, f2 = counts()
     out = dict(losses=losses, norms=norms, aux=aux, wall=wall, f1=f1, f2=f2,
                peak=torch.cuda.max_memory_allocated())
+    if keep_state:
+        out["state"] = state
     del state, step
     gc.collect()
     torch.cuda.empty_cache()
@@ -3183,6 +3201,370 @@ def phase11(seed):
             "bucketer": buckets, "hierarchical": hier, **dist_t}
 
 
+# ----------------------------------------------------------- phase 12
+# The Train library on the card: the bench preset's state through the
+# shard store, then TorchTrainer with one worker and with two.
+P12_STEPS, P12_SAVE_AT = 6, 3
+P12_BATCH, P12_SEQ = 16, 2048  # phase 4's batch
+P12_POOL_BYTES = 24 << 30  # the node's shm pool: two saves of 4.446 GB fit
+
+
+def p12_batch(cfg, seed, i):
+    """Step ``i``'s batch, drawn from (seed, i): a resumed run sees the
+    uninterrupted run's batches."""
+    rng = np.random.default_rng([seed, i])
+    return {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (P12_BATCH, P12_SEQ + 1),
+        dtype=np.int64)).to("cuda")}
+
+
+def p12_config():
+    """The bench preset (flash, remat flash_qkv) and phase 7's optimizer
+    (bf16 first moment) without warm-up: the first update already runs at
+    the full learning rate and moves every parameter."""
+    from ray_tpu_torch.models.llama import PRESETS
+    from ray_tpu_torch.train import make_optimizer
+
+    cfg = dataclasses.replace(PRESETS["bench"], attn_impl="flash")
+    return cfg, make_optimizer(lr=3e-4, warmup=0, total_steps=P12_STEPS,
+                               mu_dtype=torch.bfloat16)
+
+
+def p12_setup(seed):
+    """p12_config and its train state from the seed."""
+    from ray_tpu_torch.train import init_train_state
+
+    cfg, opt = p12_config()
+    return cfg, opt, init_train_state(cfg, opt, seed=seed, device="cuda")
+
+
+def p12_steps(cfg, opt, state, seed, stop, on_step=None):
+    """Steps ``state.step`` .. ``stop`` - 1, each ending in a sync; each
+    step's flash launches counted (24 + 24 for the bench preset). Calls
+    ``on_step(state, metrics)`` after each. Returns the state and per step
+    (loss, grad_norm, wall s, F1, F2)."""
+    from ray_tpu_torch.train import jit_train_step
+
+    step = jit_train_step(cfg, opt)
+    out = []
+    while state.step < stop:
+        data = p12_batch(cfg, seed, state.step)
+        reset_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, data)
+        sync()
+        wall = time.perf_counter() - t0
+        _, f1, f2 = counts()
+        out.append((float(m["loss"]), float(m["grad_norm"]), wall, f1, f2))
+        if on_step is not None:
+            on_step(state, m)
+    return state, out
+
+
+def p12_mismatched(state, uri):
+    """``state`` held leaf by leaf against checkpoint ``uri`` restored to
+    the host (no target): how many leaves differ from the saved leaf (a
+    DTensor from its window of it) in dtype or in any bit, and how many
+    leaves are sharded."""
+    from ray_tpu_torch import checkpoint as dc
+    from ray_tpu_torch.checkpoint import manifest
+    from torch.distributed.tensor import DTensor
+
+    saved = dc.restore_uri(uri)
+    shards = mismatched = 0
+    for key, leaf in manifest.tree_flatten_with_keys(state):
+        want = saved[key]
+        if not isinstance(leaf, torch.Tensor):
+            mismatched += leaf != want.item()
+            continue
+        if isinstance(leaf, DTensor):
+            window = manifest.dtensor_window(leaf)
+            want = want[tuple(slice(a, b) for a, b in window)]
+            leaf = leaf.to_local()
+            shards += leaf.numel() < saved[key].numel()
+        mismatched += not (leaf.dtype == want.dtype
+                           and torch.equal(leaf.cpu(), want))
+    return mismatched, shards
+
+
+def p12_worker_loop(config):
+    """TorchTrainer's loop for phase 12b: the bench state from the seed,
+    resumed from get_checkpoint() when there is one (a ckpt:// URI; the
+    resumed state, moments and step included, then held bit for bit
+    against the checkpoint), trained to config["stop"], checkpointed into
+    the shard store at config["save_at"] (report(checkpoint=uri));
+    reports every step's (loss, grad_norm, wall, F1, F2) since the fit
+    began, where it resumed from, how many resumed leaves differ from the
+    checkpoint and the loop's own seconds."""
+    import ray_tpu_torch.train as train
+    from ray_tpu_torch import checkpoint as dc
+
+    t0 = time.perf_counter()
+    seed = config["seed"]
+    cfg, opt, state = p12_setup(seed)
+    restored, mismatched = train.get_checkpoint(), None
+    if restored is not None:
+        state = dc.restore_uri(restored, target=state)
+        mismatched, _ = p12_mismatched(state, restored)
+    saver = dc.AsyncCheckpointer()
+
+    def on_step(st, _metrics):
+        uri = (saver.save(st.step, st) if st.step == config["save_at"]
+               else None)
+        train.report({"step": st.step}, checkpoint=uri)
+
+    state, steps = p12_steps(cfg, opt, state, seed, config["stop"], on_step)
+    saver.wait()
+    train.report({"step": state.step, "steps": steps,
+                  "resumed_from": restored, "mismatched": mismatched,
+                  "loop_s": time.perf_counter() - t0})
+
+
+def p12_two_worker_loop(config):
+    """TorchTrainer's loop for phase 12c, on each of two workers (an fsdp=2
+    mesh over the trainer's default gloo group, both on cuda:0): phase
+    12a's checkpoint restored onto fsdp=2 DTensors (each local shard bit
+    for bit its slice of the saved leaf); then phase 8b's first two bench
+    steps under fsdp=2 (rank_train); that state saved into the shard store
+    from both ranks (each its windows)."""
+    import ray_tpu_torch.train as train
+    from ray_tpu_torch import checkpoint as dc
+    from ray_tpu_torch.parallel.mesh import make_mesh
+    from ray_tpu_torch.train import init_train_state
+
+    ctx = train.get_context()
+    cfg, opt = p12_config()
+    target = init_train_state(cfg, opt, seed=config["seed"] + 2,
+                              device="cuda", mesh=make_mesh({"fsdp": 2}))
+    t0 = time.perf_counter()
+    state = dc.restore_uri(config["uri"], target=target)
+    restore_s = time.perf_counter() - t0
+    del target
+    mismatched, shards = p12_mismatched(state, config["uri"])
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    run = rank_train(config["seed"], {"fsdp": 2}, keep_state=True)
+    saver = dc.AsyncCheckpointer(run=config["run"], rank=ctx.rank,
+                                 world=ctx.world_size)
+    saver.save(run["state"].step, run.pop("state"))
+    saver.wait()
+    train.report({"restore_s": restore_s, "shards": shards,
+                  "mismatched": mismatched, "losses": run["losses"],
+                  "norms": run["norms"], "f1": run["f1"], "f2": run["f2"],
+                  "windows_bytes": saver.last["logical_bytes"]})
+
+
+def phase12(seed, p4, p8):
+    """The Train library on the port's runtime (ray_tpu_torch.init).
+    (a) phase 7's bench state (4.446 GB) saved through AsyncCheckpointer:
+    the seconds save() stalls the caller (the device-to-host copy) beside
+    phase 7's torch.save, the background persist's seconds, logical and
+    written bytes; saved again after one step at the full learning rate
+    (the dedup ratio); restored into a fresh state, bit for bit. (b)
+    TorchTrainer with one worker (one GPU) trains the bench preset 3
+    steps, checkpointing through report(checkpoint=uri) into the store; a
+    second fit resumes ("auto") for steps 4-6 from a state bit for bit
+    the checkpoint: losses within 2^-8 relative of an uninterrupted
+    6-step run in this process (phase 7's rule), 24 F1 and 24 F2 launches
+    per step; tokens/s through the trainer and the controller's seconds
+    per step. (c) TorchTrainer with two half-GPU workers, distributed
+    over gloo on an fsdp=2 mesh: (a)'s checkpoint restored resharded
+    (each rank's local shard bit for bit its slice), phase 8b's two
+    fsdp=2 steps (losses and gradient norms within TWO_RANK_LOSS_REL /
+    TWO_RANK_NORM_REL of one process), the state checkpointed from both
+    ranks."""
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import checkpoint as dc
+    from ray_tpu_torch.train import (
+        RunConfig,
+        ScalingConfig,
+        TorchTrainer,
+        init_train_state,
+        train_state_dict,
+    )
+
+    print("phase 12: the Train library on the runtime (shard-store "
+          "checkpoints, TorchTrainer)")
+    out = {}
+    rt.init(num_cpus=4, _system_config={"POOL_BYTES": P12_POOL_BYTES})
+    try:
+        # (a) the bench state through the shard store.
+        cfg, opt, state = p12_setup(seed)
+        cp = dc.AsyncCheckpointer(run="phase12a", replication=1)
+        stalls = []
+        for label in ("first save (host buffers allocated)", "after a step"):
+            if stalls:
+                state, _ = p12_steps(cfg, opt, state, seed, 1)
+            sync()
+            t0 = time.perf_counter()
+            uri = cp.save(state.step, state)
+            stalls.append(time.perf_counter() - t0)
+            t1 = time.perf_counter()
+            cp.wait()
+            last = dict(cp.last, wait_s=time.perf_counter() - t1)
+            ratio = 1 - last["new_bytes"] / last["logical_bytes"]
+            print(f"  12a {label}: save() stalled the caller "
+                  f"{stalls[-1]:.3f} s; persist {last['persist_s']:.2f} s "
+                  f"(offload to commit {last['replication_lag_s']:.2f} s), "
+                  f"{last['logical_bytes']} logical bytes, "
+                  f"{last['new_bytes']} written, {last['chunks']} chunks, "
+                  f"dedup ratio {ratio:.3f}")
+            check(last["complete"], f"{uri} did not commit complete")
+        out["a"] = {"stall_s": stalls, "persist_s": last["persist_s"],
+                    "lag_s": last["replication_lag_s"],
+                    "logical_bytes": last["logical_bytes"],
+                    "written_bytes": last["new_bytes"], "dedup": ratio,
+                    "uri": uri}
+        saved = train_state_dict(state)
+        fresh = init_train_state(cfg, opt, seed=seed + 1, device="cuda")
+        t0 = time.perf_counter()
+        back = train_state_dict(dc.restore_uri(uri, target=fresh))
+        sync()
+        out["a"]["restore_s"] = time.perf_counter() - t0
+        check(back.keys() == saved.keys() and all(
+            back[k].dtype == saved[k].dtype and back[k].device ==
+            saved[k].device and torch.equal(back[k], saved[k])
+            for k in saved), "12a: the restored state differs from the "
+              "saved one")
+        print(f"  12a restore into a fresh state: "
+              f"{out['a']['restore_s']:.2f} s, bit for bit the saved one")
+        del state, fresh, saved, back
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) one worker, resumed from the store.
+        _, _, state = p12_setup(seed)
+        _, whole = p12_steps(cfg, opt, state, seed, P12_STEPS)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_p12_") as tmp:
+            fits = []
+            for stop, save_at, resume in ((P12_SAVE_AT, P12_SAVE_AT, None),
+                                          (P12_STEPS, None, "auto")):
+                t0 = time.perf_counter()
+                res = TorchTrainer(
+                    p12_worker_loop,
+                    train_loop_config={"seed": seed, "stop": stop,
+                                       "save_at": save_at},
+                    scaling_config=ScalingConfig(
+                        num_workers=1, use_gpu=True, gpus_per_worker=1),
+                    run_config=RunConfig(name="phase12b", storage_path=tmp,
+                                         resume_from_checkpoint=resume),
+                ).fit()
+                check(res.error is None, f"12b fit failed: {res.error!r}")
+                fits.append((res, time.perf_counter() - t0))
+        (first, first_s), (second, second_s) = fits
+        check(first.checkpoint == f"ckpt://phase12b/{P12_SAVE_AT}"
+              and second.metrics["resumed_from"] == first.checkpoint,
+              f"12b: fit 1 left {first.checkpoint}, fit 2 resumed from "
+              f"{second.metrics['resumed_from']}")
+        check(second.metrics["mismatched"] == 0,
+              f"12b: {second.metrics['mismatched']} leaves of the resumed "
+              f"state differ from the checkpoint")
+        steps = first.metrics["steps"] + second.metrics["steps"]
+        rel = [abs(a[0] / b[0] - 1) for a, b in zip(steps, whole)]
+        print("  12b uninterrupted losses: "
+              + ", ".join(f"{r[0]:.6f}" for r in whole))
+        print("  12b through TorchTrainer, resumed at step "
+              f"{P12_SAVE_AT} from a state bit for bit the checkpoint: "
+              + ", ".join(f"{r[0]:.6f}" for r in steps)
+              + f"; largest relative difference {max(rel):.3e} (limit "
+              f"2^-8)")
+        check(len(steps) == P12_STEPS and all(r <= 2**-8 for r in rel),
+              "12b: the resumed trainer's losses leave the uninterrupted "
+              "run's")
+        check(all(r[3] == r[4] == cfg.n_layers for r in steps),
+              f"12b: F1/F2 launches per step "
+              f"{[(r[3], r[4]) for r in steps]}, expected "
+              f"{cfg.n_layers} each")
+        walls = [r[2] for r in first.metrics["steps"][1:]
+                 + second.metrics["steps"][1:]]
+        tps = P12_BATCH * P12_SEQ * len(walls) / sum(walls)
+        overhead = (first_s + second_s - first.metrics["loop_s"]
+                    - second.metrics["loop_s"]) / P12_STEPS
+        print(f"  12b TorchTrainer: {tps:.1f} tokens/s (steps after each "
+              f"fit's first; phase 4 {p4['tokens_per_s']:.1f}), fits "
+              f"{first_s:.1f} s + {second_s:.1f} s, the controller's "
+              f"{overhead:.2f} s per step (fit walls less the loops' own "
+              f"seconds, over {P12_STEPS} steps); F1 + F2 launches per "
+              f"step {steps[0][3]} + {steps[0][4]}")
+        out["b"] = {"tokens_per_s": tps, "overhead_s": overhead,
+                    "max_rel": max(rel), "launches": [r[3:] for r in steps],
+                    "fit_s": [first_s, second_s]}
+
+        # (c) two workers on one card, fsdp=2 over gloo.
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_p12c_") as tmp:
+            res = TorchTrainer(
+                p12_two_worker_loop,
+                train_loop_config={"seed": seed, "uri": out["a"]["uri"],
+                                   "run": "phase12c"},
+                scaling_config=ScalingConfig(
+                    num_workers=2, use_gpu=True, gpus_per_worker=0.5,
+                    distributed=True, dist_backend="gloo"),
+                run_config=RunConfig(name="phase12c", storage_path=tmp),
+            ).fit()
+        check(res.error is None, f"12c fit failed: {res.error!r}")
+        m = res.metrics
+        check(m["mismatched"] == 0 and m["shards"] > 0,
+              f"12c: {m['mismatched']} restored leaves differ from their "
+              f"slices of the saved ones ({m['shards']} sharded)")
+        print(f"  12c: 12a's checkpoint restored onto fsdp=2 in "
+              f"{m['restore_s']:.2f} s (rank 0), {m['shards']} leaves "
+              f"sharded, every local shard bit for bit its slice")
+        for i, (loss, norm) in enumerate(zip(m["losses"], m["norms"])):
+            want, want_norm = p8["single"][i], p8["single_norms"][i]
+            rl, rn = abs(loss / want - 1), abs(norm / want_norm - 1)
+            print(f"  12c step {i}: loss {loss:.6f} (one process "
+                  f"{want:.6f}, rel {rl:.2e}), grad_norm {norm:.6f} "
+                  f"({want_norm:.6f}, rel {rn:.2e})")
+            check(rl <= TWO_RANK_LOSS_REL and rn <= TWO_RANK_NORM_REL,
+                  f"12c step {i}: off one process beyond "
+                  f"{TWO_RANK_LOSS_REL} / {TWO_RANK_NORM_REL}")
+        check(m["f1"] == m["f2"] == 2 * cfg.n_layers,
+              f"12c: rank 0 launched F1 {m['f1']} and F2 {m['f2']} "
+              f"times in two steps, expected {2 * cfg.n_layers} each")
+        # The two ranks' manifests, merged at the head, cover every leaf
+        # of the bench state whole (checked from the windows, without
+        # pulling the chunks); one sharded leaf and the step restored.
+        core = rt.api._runtime
+
+        def entries(run):
+            reply = core.run(core.core.head.call("ckpt_manifest", run=run,
+                                                 step=None))
+            check(reply.get("ok"), f"12c: no complete checkpoint of {run}")
+            return reply["entries"]
+
+        two, one = entries("phase12c"), entries("phase12a")
+        check(two.keys() == one.keys() and all(
+            (e["shape"], e["dtype"]) == (one[k]["shape"], one[k]["dtype"])
+            and sum(math.prod(b - a for a, b in sh["index"])
+                    if sh.get("index") else math.prod(e["shape"])
+                    for sh in e["shards"]) == math.prod(e["shape"])
+            for k, e in two.items()),
+            "12c: the two ranks' checkpoint is not the whole bench state")
+        emb = ".params['tok_emb']"
+        part = dc.restore("phase12c", keys=[emb, ".step"])
+        check(int(part[".step"]) == 2 and bool(torch.isfinite(
+            part[emb]).all()) and len(two[emb]["shards"]) == 2,
+              f"12c: the restored step {part['.step']} or {emb} "
+              f"({len(two[emb]['shards'])} windows)")
+        print(f"  12c: the state after 2 steps checkpointed from both ranks "
+              f"(rank 0 wrote {m['windows_bytes']} bytes of windows): "
+              f"{len(two)} leaves whole in the merged manifest, {emb} "
+              f"restored from its 2 windows; fit "
+              f"{time.perf_counter() - t0:.1f} s")
+        out["c"] = {"losses": m["losses"], "norms": m["norms"],
+                    "restore_s": m["restore_s"]}
+    finally:
+        rt.shutdown()
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -3276,9 +3658,9 @@ def timing_serving(cfg, positions, errs, mini_cfg, mini_positions):
     # P1 at head_dim 64, mini's 12 / 4 heads.
     rows["paged_attention_d64"] = paged_row(
         mini_cfg, mini_positions, errs["paged_d64"], "paged_attention_d64")
-    # P1 at pages of 16 and 32 tokens, the same first decode step (tables
-    # of the same 2048 tokens).
-    for page in (16, 32):
+    # P1 at pages of 16, 32 and 4 tokens, the same first decode step
+    # (tables of the same 2048 tokens).
+    for page in (16, 32, 4):
         r = time_paged(cfg, positions, 1, max_pages=2048 // page, page=page)
         print(f"  paged_attention_p{page} at the first decode step: "
               f"{r.pop('pages_per_split')} pages per split, host time per "
@@ -3415,7 +3797,7 @@ def main() -> int:
     print(f"weights: {cfg.num_params() / 1e9:.2f} B parameters in "
           f"{cfg.dtype}, drawn in {time.time() - t0:.1f} s")
     p2 = phase2(cfg, params, args.seed)
-    p2_pages = page_variants(cfg, params, args.seed, p2, (16, 32),
+    p2_pages = page_variants(cfg, params, args.seed, p2, (16, 32, 4),
                              "llama3_8b")
     p3 = phase3(cfg, params, args.seed)
     print(f"serving peak device memory "
@@ -3482,6 +3864,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     p11 = phase11(args.seed)
     lap("phase 11")
+    gc.collect()
+    torch.cuda.empty_cache()
+    p12 = phase12(args.seed, p4, p8)
+    lap("phase 12")
     prof = p4["profile"]
     print(f"train: {p4['tokens_per_s']:.1f} tokens/s, "
           f"{p4['peak_share']:.2%} of dense bf16 peak, step "
@@ -3561,6 +3947,19 @@ def main() -> int:
           f"{p11['transport']['group']['GB_per_s']:.2f} GB/s; NCCL, two "
           f"ranks on one card: {p11['nccl_world1']['two_ranks_one_card']} "
           f"[{card}]")
+    a12, b12, c12 = p12["a"], p12["b"], p12["c"]
+    print(f"phase 12, the Train library: bench state "
+          f"{a12['logical_bytes'] / 1e9:.3f} GB through AsyncCheckpointer, "
+          f"save() stalls {a12['stall_s'][0]:.3f} s (first, host buffers "
+          f"allocated) / {a12['stall_s'][1]:.3f} s (phase 7's torch.save "
+          f"{p7['save_s']:.2f} s), persist {a12['persist_s']:.2f} s, "
+          f"written {a12['written_bytes'] / 1e9:.3f} GB after a step "
+          f"(dedup {a12['dedup']:.3f}), restore {a12['restore_s']:.2f} s; "
+          f"TorchTrainer {b12['tokens_per_s']:.1f} tokens/s (phase 4 "
+          f"{p4['tokens_per_s']:.1f}), controller {b12['overhead_s']:.2f} s "
+          f"per step, resumed losses within {b12['max_rel']:.3e}; two "
+          f"workers fsdp=2 losses {c12['losses']} (one process "
+          f"{p8['single']}) [{card}]")
     rows.update({k: tp_rows[k] for k in TP_MAIN_ROWS})
     rows.update(p9["pipeline"]["rows"])
     print(f"run took {time.time() - t_start:.1f} s")
@@ -3570,6 +3969,7 @@ def main() -> int:
                 "paged_attention_d64": m2["launches"],
                 "paged_attention_p16": p2_pages[16]["launches"],
                 "paged_attention_p32": p2_pages[32]["launches"],
+                "paged_attention_p4": p2_pages[4]["launches"],
                 "flash_fwd": p3["launches"],
                 "flash_fwd_train": p4["f1_launches"],
                 "flash_bwd": p4["f2_launches"],
@@ -3589,6 +3989,7 @@ def main() -> int:
         "paged_attention_d64": paged,
         "paged_attention_p16": paged,
         "paged_attention_p32": paged,
+        "paged_attention_p4": paged,
         "flash_fwd": fwd,
         "flash_fwd_train": fwd,
         "flash_bwd": ("ray_tpu_torch/csrc/flash_bwd.cu",

@@ -45,6 +45,10 @@ from typing import Any, Sequence
 
 import numpy as np
 
+from ray_tpu_torch.checkpoint.manifest import (
+    tree_flatten_with_keys,
+    tree_unflatten,
+)
 from ray_tpu_torch.collective import algo as colalgo
 from ray_tpu_torch.collective import codec
 from ray_tpu_torch.collective.types import CollectiveWork, PartialResult
@@ -159,41 +163,6 @@ def _zeros_of(shape, dtype_key: str, hint):
         return torch.zeros(shape, dtype=getattr(torch, dtype_key),
                            device=hint.device)
     return np.zeros(shape, dtype=dtype_key)
-
-
-def _tree_flatten_with_keys(tree, prefix: str = ""):
-    """``[(key string, leaf)]`` of a nested dict/list/tuple tree in the
-    JAX package's order and key-string form (None holds no leaf)."""
-    if isinstance(tree, dict):
-        out = []
-        for k in sorted(tree):
-            out += _tree_flatten_with_keys(tree[k], f"{prefix}[{k!r}]")
-        return out
-    if isinstance(tree, (list, tuple)):
-        out = []
-        for i, v in enumerate(tree):
-            out += _tree_flatten_with_keys(v, f"{prefix}[{i}]")
-        return out
-    if tree is None:
-        return []
-    return [(prefix, tree)]
-
-
-def _tree_unflatten(like, leaves):
-    """``like``'s structure with its leaves replaced by ``leaves`` (in
-    flatten order)."""
-    it = iter(leaves)
-
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(v) for v in node)
-        if node is None:
-            return None
-        return next(it)
-
-    return build(like)
 
 
 @dataclasses.dataclass
@@ -685,7 +654,7 @@ class GradBucketer:
         st = self.stream()
         if self._per_rank_group:
             flat_per_rank = [
-                [v for _k, v in _tree_flatten_with_keys(t)] for t in grads
+                [v for _k, v in tree_flatten_with_keys(t)] for t in grads
             ]
             paths, _treedef = self._paths_and_def(grads[0])
             for i in reversed(range(len(paths))):
@@ -694,7 +663,7 @@ class GradBucketer:
                 )
         else:
             paths, _treedef = self._paths_and_def(grads)
-            leaves = [v for _k, v in _tree_flatten_with_keys(grads)]
+            leaves = [v for _k, v in tree_flatten_with_keys(grads)]
             for i in reversed(range(len(paths))):
                 st.add(paths[i], leaves[i])
         return st.finish()
@@ -747,7 +716,7 @@ class GradBucketer:
             trees = list(grads)
             paths, _treedef = self._paths_and_def(trees[0])
             flat_per_rank = [
-                [v for _k, v in _tree_flatten_with_keys(t)] for t in trees
+                [v for _k, v in tree_flatten_with_keys(t)] for t in trees
             ]
             leaf_arrs = [
                 [_leaf(leaves[i]) for leaves in flat_per_rank]
@@ -755,7 +724,7 @@ class GradBucketer:
             ]
         else:
             paths, _treedef = self._paths_and_def(grads)
-            leaves = [v for _k, v in _tree_flatten_with_keys(grads)]
+            leaves = [v for _k, v in tree_flatten_with_keys(grads)]
             leaf_arrs = [[_leaf(v)] for v in leaves]
         owners = owners if owners is not None else self.zero_owners(paths)
         world = max(1, self.world)
@@ -860,12 +829,12 @@ class GradBucketer:
         if self._per_rank_group and isinstance(like, (list, tuple)):
             like = like[0]
         paths, treedef = self._paths_and_def(like)
-        return _tree_unflatten(treedef, [synced[p] for p in paths])
+        return tree_unflatten(treedef, [synced[p] for p in paths])
 
     def _paths_and_def(self, tree):
         """Leaf key strings in flatten order, and the tree itself as the
         structure to rebuild."""
-        return [k for k, _v in _tree_flatten_with_keys(tree)], tree
+        return [k for k, _v in tree_flatten_with_keys(tree)], tree
 
     def unflatten(self, like, synced: dict):
         """Rebuild the gradient tree (or the list of per-rank trees)
@@ -874,8 +843,8 @@ class GradBucketer:
             paths, treedef = self._paths_and_def(like[0])
             ranks = len(like)
             return [
-                _tree_unflatten(treedef, [synced[p][r] for p in paths])
+                tree_unflatten(treedef, [synced[p][r] for p in paths])
                 for r in range(ranks)
             ]
         paths, treedef = self._paths_and_def(like)
-        return _tree_unflatten(treedef, [synced[p] for p in paths])
+        return tree_unflatten(treedef, [synced[p] for p in paths])

@@ -20,15 +20,20 @@
 //   combine reads the live splits only, so its weight is exactly 0.
 // - Bulk asynchronous copies. With the head-major pool one (page, KV head)
 //   tile is one contiguous run (P x Dh x 2 bytes in bf16), so thread 0
-//   copies each K and V tile with one cp.async.bulk that completes on an
-//   mbarrier. A ring stage holds 64 key cells: one 64-token page, or the
-//   64 / P consecutive table entries of smaller pages (8, 16, 32 tokens:
-//   64 / P bulk copies each for K and V, every one a multiple of 16
-//   bytes); a ring of up to kMaxStages stages is in flight per block. The
-//   tiles stay in the input dtype in shared memory. A stage's tail past
-//   the slot's last live page is not copied: its cells lie past every
-//   query position, so they are masked in q.k and skipped in p.v (stale
-//   shared memory is never read into a sum).
+//   copies K and V with cp.async.bulk copies that complete on an mbarrier.
+//   A ring stage holds at most 64 key cells: for P <= 64 the
+//   floor(64 / P) consecutive table entries of whole pages (one bulk copy
+//   of a whole tile each for K and for V; P = 48 fills 48 cells), for
+//   P > 64 a 64-cell part of one page (a page spans ceil(P / 64) stages,
+//   each one bulk copy at an offset of 64 rows inside the tile). Every
+//   copy and every offset is a multiple of 16 bytes at Dh in {64, 128}
+//   for any P, in bf16 and in fp32 (a row is 128 bytes at least). A ring
+//   of up to kMaxStages stages is in flight per block; the mbarrier
+//   expects each stage's own bytes. The tiles stay in the input dtype in
+//   shared memory. A stage's cells past its copied cells (the tail of a
+//   slot's last stage, or every stage shorter than 64 cells) are masked
+//   in q.k and skipped in p.v (stale shared memory is never read into a
+//   sum).
 // - CUDA-core products from the tiles. Warp w owns cells 16w..16w+15 of
 //   every stage. For q.k, L = 2R lanes share a cell, each holding a slice of
 //   q for all R rows in registers; a reduce-scatter across the L lanes
@@ -40,8 +45,8 @@
 //   One __syncthreads per stage: the warps' row maxima meet in shared
 //   memory, so the running max (and the point where p is rounded to v's
 //   dtype) is the split's, stage by stage, as in
-//   paged_attention_split_reference (which steps 64 / P pages at a time
-//   for pages under 64 tokens).
+//   paged_attention_split_reference (which steps through the same
+//   stages).
 // - One launch. A split with siblings writes its unnormalised fp32 O, m
 //   and l to a workspace; the last block of a (slot, KV head, row block)
 //   to take a ticket combines them: O = sum_s exp(m_s - M) O_s /
@@ -53,9 +58,8 @@
 //   combine.
 //
 // Built for head sizes 64 and 128 (mini's and llama3_8b's) from this one
-// template, and for pages of 8, 16, 32 and 64 tokens (the page size is a
-// runtime argument; pages_per_split is a multiple of 64 / P, so a stage
-// never spans two splits).
+// template, and for any page size (a runtime argument; pages_per_split is
+// a multiple of the pages per stage, so a stage never spans two splits).
 
 #include <cstddef>
 #include <cstdint>
@@ -68,9 +72,17 @@ namespace {
 constexpr int kThreads = 128;  // 4 warps
 constexpr int kWarps = kThreads / 32;
 constexpr int kStage = 64;     // key cells per ring stage: 16 per warp
-constexpr int kMinPage = 8;    // smallest page size built
-constexpr int kMaxSub = kStage / kMinPage;  // pages per stage, at most
+constexpr int kMaxSub = 16;    // table entries read ahead per batch of copies
 constexpr int kMaxStages = 3;  // stages in flight per block
+
+// The stage rule that the wrapper (ops/paged_attention.py, stage_layout)
+// shares: whole pages per stage, and stages per page.
+__host__ __device__ constexpr int pages_per_stage(int page) {
+  return page <= kStage ? kStage / page : 1;
+}
+__host__ __device__ constexpr int stages_per_page(int page) {
+  return (page + kStage - 1) / kStage;
+}
 
 // Elements of one ring stage's K (or V) tile at head size D.
 template <int D>
@@ -205,9 +217,10 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   const int lastp = min(max((pos + kq - 1) / page, 0), max_pages - 1);
   const int first = split * pages_per_split;
   if (first > lastp) return;  // empty split: weight 0, the combine skips it
-  const int np = kStage / page;  // table entries per stage
+  const int np = pages_per_stage(page);  // table entries per stage
+  const int sp = stages_per_page(page);  // stages per table entry
   const int n_entries = min(first + pages_per_split, lastp + 1) - first;
-  const int n_steps = (n_entries + np - 1) / np;  // ring stages walked
+  const int n_steps = (n_entries + np - 1) / np * sp;  // stages walked
   const int n_live = lastp / pages_per_split + 1;
   const int ptile = page * D;  // elements of one (page, KV head) tile
 
@@ -227,25 +240,46 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   const int cg = lane / L;  // which of the iteration's G cells
   const int* table = tables + (size_t)b * max_pages;
 
-  // Stage t of the split (table entries first + t * np ..) into ring
-  // slot t % stages: one bulk copy per live page for K and for V.
+  // Stage t of the split: table entries e0 .. e0 + n_sub - 1 from cell
+  // `sub * kStage` of each tile, `cells` key cells in all, the first at
+  // key position `key`.
+  struct Stage {
+    int e0, n_sub, sub, cells, key;
+  };
+  auto stage = [&](int t) {
+    Stage st;
+    const int pg = t / sp;
+    st.e0 = first + pg * np;
+    st.n_sub = min(np, n_entries - pg * np);
+    st.sub = t % sp;
+    st.cells =
+        sp == 1 ? st.n_sub * page : min(kStage, page - st.sub * kStage);
+    st.key = st.e0 * page + st.sub * kStage;
+    return st;
+  };
+  // Stage t into ring slot t % stages: one bulk copy per table entry for
+  // K and for V (of a whole tile, or of its part for pages over 64 cells).
   auto issue = [&](int t) {
-    const int e0 = first + t * np;
-    const int n_sub = min(np, n_entries - t * np);
-    int pages[kMaxSub];
-#pragma unroll
-    for (int s = 0; s < kMaxSub; ++s)
-      pages[s] = s < n_sub ? max(table[e0 + s], 0) : 0;
+    const Stage st = stage(t);
     T* dst = ring + (size_t)(t % stages) * 2 * kTile;
     uint64_t* bar = &bars[t % stages];
-    const uint32_t bytes = ptile * sizeof(T);
-    mbar_expect_tx(bar, 2 * n_sub * bytes);
+    const int rows = sp == 1 ? page : st.cells;  // cells per copy
+    const uint32_t bytes = rows * D * sizeof(T);
+    const size_t off = (size_t)st.sub * kStage * D;
+    mbar_expect_tx(bar, 2 * st.n_sub * bytes);
+    for (int s0 = 0; s0 < st.n_sub; s0 += kMaxSub) {
+      int pages[kMaxSub];
 #pragma unroll
-    for (int s = 0; s < kMaxSub; ++s) {
-      if (s < n_sub) {
-        const size_t src = ((size_t)pages[s] * n_kv + g) * ptile;
-        bulk_copy(dst + s * ptile, k_pool + src, bytes, bar);
-        bulk_copy(dst + kTile + s * ptile, v_pool + src, bytes, bar);
+      for (int s = 0; s < kMaxSub; ++s)
+        pages[s] = s0 + s < st.n_sub ? max(table[st.e0 + s0 + s], 0) : 0;
+#pragma unroll
+      for (int s = 0; s < kMaxSub; ++s) {
+        if (s0 + s < st.n_sub) {
+          const size_t src = ((size_t)pages[s] * n_kv + g) * ptile + off;
+          bulk_copy(dst + (s0 + s) * rows * D, k_pool + src, bytes, bar);
+          bulk_copy(dst + kTile + (s0 + s) * rows * D, v_pool + src, bytes,
+                    bar);
+        }
       }
     }
   };
@@ -300,11 +334,11 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     mbar_wait(&bars[t % stages], (t / stages) & 1);
     const T* kt = ring + (size_t)(t % stages) * 2 * kTile + warp * 16 * D;
     const T* vt = kt + kTile;
-    const int key0 = first * page + t * kStage + warp * 16;
-    // Cells of this warp that were copied (the last stage of a slot may
-    // stop short of 64 cells; the rest lie past every query position).
-    const int n_cells =
-        min(16, max(0, min(np, n_entries - t * np) * page - warp * 16));
+    const Stage st = stage(t);
+    const int key0 = st.key + warp * 16;
+    // Cells of this warp that were copied (a stage may hold fewer than
+    // 64 cells; the rest lie past every query position or are masked).
+    const int n_cells = min(16, max(0, st.cells - warp * 16));
 
     // Scores of this warp's 16 cells, scaled after the product, masked
     // past each row's query position and past the copied cells.
@@ -531,7 +565,8 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
   const int n_split = (max_pages + pages_per_split - 1) / pages_per_split;
   // One ring slot when a split is one stage; otherwise at least two, so
   // that the refill of stage t - 1's slot never waits on stage t itself.
-  const int steps = pages_per_split / (kStage / page);
+  const int steps = pages_per_split / pages_per_stage(page) *
+                    stages_per_page(page);
   const int stages = steps < kMaxStages ? steps : kMaxStages;
   const size_t smem = smem_bytes<T, D, R>(stages, n_split);
   auto kernel = paged_attention_kernel<T, D, R>;
@@ -596,17 +631,16 @@ cudaError_t dispatch_head_dim(int head_dim, int row_block, const Args& a) {
 // row_block and pages_per_split come from the wrapper
 // (ray_tpu_torch/ops/paged_attention.py), which sizes the workspace
 // (ws_acc, ws_ml: fp32; tickets: int32 zeros) from the same numbers.
-// head_dim must be 64 or 128, page_size 8, 16, 32 or 64, and
-// pages_per_split a multiple of 64 / page_size.
+// head_dim must be 64 or 128, page_size at least 1, and pages_per_split
+// a multiple of pages_per_stage(page_size).
 extern "C" int rtt_paged_attention(
     int dtype, const void* q, const void* k_pool, const void* v_pool,
     const void* tables, const void* positions, void* out, void* ws_acc,
     void* ws_ml, void* tickets, int batch, int kq, int n_heads, int n_kv,
     int head_dim, int page_size, int max_pages, int row_block,
     int pages_per_split, float scale, void* stream) {
-  if (page_size < rtt::kMinPage || page_size > rtt::kStage ||
-      (page_size & (page_size - 1)) || pages_per_split < 1 ||
-      pages_per_split % (rtt::kStage / page_size))
+  if (page_size < 1 || pages_per_split < 1 ||
+      pages_per_split % rtt::pages_per_stage(page_size))
     return cudaErrorInvalidValue;
   const rtt::Args a{q, k_pool, v_pool, tables, positions, out, ws_acc,
                     ws_ml, tickets, batch, kq, n_heads, n_kv, page_size,

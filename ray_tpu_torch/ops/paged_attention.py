@@ -11,8 +11,9 @@ is in q's dtype. The kernel is ``csrc/paged_attention.cu``: each slot's
 page walk is split across blocks of ``pages_per_split`` pages, and the
 splits are combined in the same launch (:func:`paged_attention_split_reference`
 is its arithmetic in PyTorch). It is built for head sizes 64 and 128 and
-pages of 8, 16, 32 and 64 tokens: a ring stage of the kernel holds 64 key
-cells, one page or 64 / P consecutive table entries.
+any page size: a ring stage of the kernel holds at most 64 key cells,
+floor(64 / P) whole pages for P <= 64 and a 64-cell part of one page for
+P > 64 (:func:`stage_layout`, the rule the C entry point checks too).
 
 What bounds it on the H100 is bytes: every live K/V page is read once and
 takes 2 * n_rep * K flops per element. At ``mini``'s decode (12/4 heads of
@@ -34,13 +35,31 @@ from ray_tpu_torch import _build
 _MASK = -1e9
 _M_INIT = -1e30
 KERNEL_HEAD_DIMS = (64, 128)  # the head sizes csrc/paged_attention.cu builds
-KERNEL_PAGE_SIZES = (8, 16, 32, 64)  # the page sizes it builds
-_STAGE_CELLS = 64  # key cells per ring stage of the kernel (16 per warp)
+_STAGE_CELLS = 64  # key cells per ring stage of the kernel, at most
 # Blocks to aim for if every slot's table were full. Slots fill a part of
 # their table (the table is sized for max_seq), so this asks for ~2 live
 # blocks per SM at a quarter full; 16 (one page per split at decode batch
 # 8) measured no faster at any shape timed (PERF.md).
 _BLOCKS_PER_SM = 8
+
+
+def stage_layout(page_size: int) -> tuple[int, int]:
+    """(table entries per ring stage, stages per table entry) of the
+    kernel at ``page_size`` tokens per page: floor(64 / P) whole pages per
+    stage for P <= 64, else ceil(P / 64) stages of at most 64 cells per
+    page (``pages_per_stage`` / ``stages_per_page`` in the kernel)."""
+    if page_size < 1:
+        raise ValueError(f"paged_attention: page size {page_size}")
+    if page_size <= _STAGE_CELLS:
+        return _STAGE_CELLS // page_size, 1
+    return 1, -(-page_size // _STAGE_CELLS)
+
+
+def stage_cells(page_size: int) -> list[tuple[int, int]]:
+    """The cells [start, stop) of each page that one kernel stage holds:
+    the whole page for P <= 64, else its parts of 64 cells."""
+    return [(c, min(c + _STAGE_CELLS, page_size))
+            for c in range(0, page_size, _STAGE_CELLS)]
 
 
 def paged_attention_reference(
@@ -91,8 +110,9 @@ def paged_attention_split_reference(
 ) -> torch.Tensor:
     """The kernel's arithmetic at its rounding points: each run of
     ``pages_per_split`` table entries is one split, walked one stage of
-    the kernel at a time (one page, or 64 / P pages under 64 tokens) with
-    an fp32 online softmax (p = exp(s - running max), rounded to v's
+    the kernel at a time (:func:`stage_layout`: floor(64 / P) whole pages,
+    or a 64-cell part of a page over 64 tokens) with an fp32 online
+    softmax (p = exp(s - running max), rounded to v's
     dtype for the PV product; stages past the slot's last live page are
     skipped); the splits are then combined in fp32 as
     sum_s exp(m_s - M) acc_s / sum_s exp(m_s - M) l_s, M = max_s m_s (0
@@ -109,22 +129,26 @@ def paged_attention_split_reference(
     q_pos = positions.long()[:, None] + torch.arange(rows, device=dev) % kq
     lastp = ((positions.long() + kq - 1) // page_size).clamp(0, max_pages - 1)
     tables = block_tables.clamp(min=0).long()
-    step = max(1, _STAGE_CELLS // page_size)  # pages per stage
+    step = stage_layout(page_size)[0]  # pages per stage
     parts = []
     for first in range(0, max_pages, pages_per_split):
         m = torch.full((b, hkv, rows), _M_INIT, device=dev)
         l = torch.zeros((b, hkv, rows), device=dev)
         acc = torch.zeros((b, hkv, rows, dh), device=dev)
         end = min(first + pages_per_split, max_pages)
-        for ip in range(first, end, step):
+        for ip, c0, c1 in ((ip, c0, c1)
+                           for ip in range(first, end, step)
+                           for c0, c1 in stage_cells(page_size)):
             ips = tables[:, ip:min(ip + step, end)]  # [B, n]
             live = (ip <= lastp)[:, None, None]  # [B, 1, 1]
-            # [B, n, Hkv, P, Dh] -> [B, Hkv, n * P, Dh]
-            kt = k_pool[ips].float().transpose(1, 2).flatten(2, 3)
-            vt = v_pool[ips].transpose(1, 2).flatten(2, 3)
+            # [B, n, Hkv, c1 - c0, Dh] -> [B, Hkv, n * (c1 - c0), Dh]
+            kt = k_pool[ips][..., c0:c1, :].float().transpose(1, 2)
+            kt = kt.flatten(2, 3)
+            vt = v_pool[ips][..., c0:c1, :].transpose(1, 2).flatten(2, 3)
             s = torch.einsum("bgrd,bgcd->bgrc", qg, kt) * dh**-0.5
             cells = torch.arange(kt.shape[2], device=dev)
-            hidden = (ip * page_size + cells)[None, None] > q_pos[:, :, None]
+            key0 = ip * page_size + c0
+            hidden = (key0 + cells)[None, None] > q_pos[:, :, None]
             s = s.masked_fill(hidden[:, None], _MASK)
             m_new = torch.maximum(m, s.amax(dim=-1))
             alpha = torch.exp(m - m_new)
@@ -158,9 +182,9 @@ def pages_per_split(batch: int, groups: int, max_pages: int,
     """Table entries per split, from static quantities only (never the
     positions, which would cost a host sync): enough splits that a full
     table gives ``_BLOCKS_PER_SM`` blocks per SM over the ``batch x
-    groups`` (slot, KV head x row block) pairs, at most one per kernel
-    stage; rounded up to whole stages (64 / page_size pages each)."""
-    step = max(1, _STAGE_CELLS // page_size)
+    groups`` (slot, KV head x row block) pairs, at most one per table
+    entry; rounded up to whole stages (stage_layout's pages per stage)."""
+    step = stage_layout(page_size)[0]
     n_split = min(max_pages, -(-_BLOCKS_PER_SM * sm_count // (batch * groups)))
     pps = -(-max_pages // max(n_split, 1))
     return -(-pps // step) * step
@@ -246,11 +270,10 @@ def paged_attention(
             f"paged_attention: shapes q {tuple(q.shape)}, pools "
             f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)} do not match"
         )
-    if dh not in KERNEL_HEAD_DIMS or page_size not in KERNEL_PAGE_SIZES:
+    if dh not in KERNEL_HEAD_DIMS:
         raise ValueError(
             f"paged_attention: the kernel is built for head_dim in "
-            f"{KERNEL_HEAD_DIMS} and page sizes in {KERNEL_PAGE_SIZES}, "
-            f"got {dh} and {page_size}"
+            f"{KERNEL_HEAD_DIMS}, got {dh}"
         )
     if (block_tables.dtype != torch.int32 or positions.dtype != torch.int32
             or block_tables.dim() != 2 or block_tables.shape[0] != b

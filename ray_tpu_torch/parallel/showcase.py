@@ -5,9 +5,10 @@ A minimal but complete composition of the three mechanisms a large run
 stacks: GPipe pipeline stages (pp) whose bodies are expert-parallel blocks
 (ep: each rank runs its own experts, the combine summed over ep) with a
 ZeRO-3-sharded dense weight (fsdp: gathered at use), the batch cut over
-fsdp. The reference drives it through its trainer's session
-(``composed_trainer_loop``), which is not ported: the runtime it needs is
-not part of the port (ROADMAP.md, Queue 1).
+fsdp. The reference also drives it through its trainer's session and
+gradient bucketer (``composed_trainer_loop``); that loop is not ported
+yet (ROADMAP.md, Queue 1 item 2), though the trainer, the session and the
+bucketer it needs now are.
 """
 
 from __future__ import annotations

@@ -1,24 +1,33 @@
-"""Checkpoints of the train state on one device (port of
-ray_tpu/train/checkpoint.py).
+"""Checkpoints of the train state (port of ray_tpu/train/checkpoint.py).
 
-A checkpoint is a directory: ``state.pt`` (``torch.save`` of the state's
-named tensors, read back with ``torch.load(weights_only=True)``) and
+A checkpoint is a directory: the state's named tensors and
 ``metadata.json``. Where the reference writes orbax shards of a sharded
 pytree, the port saves a :class:`TrainState` through ``train_state_dict``
-or a nested dict of tensors and numbers as it is.
+or a nested dict of tensors and numbers as it is. Every rank of the
+process group (one, without a group) writes ``state.r<rank>.pt``
+(``torch.save``, read back with ``torch.load(weights_only=True)``): the
+windows it owns, its local shard of each DTensor (coordinate 0 of each
+replicated mesh dimension) and, of the whole tensors, its round-robin
+share by sorted name (checkpoint/manifest.py's rule); nothing is
+gathered. A restore reads every rank's windows and places each tensor as
+the target's is placed, so it may run on another mesh than the save.
 
 Crash safety is the reference's: a save lands in ``<path>.tmp`` and is
 swapped in with two renames (the previous copy goes to ``<path>.old``
 first), so a preemption mid-save never destroys the previous copy, and a
 crash between the renames is undone by :func:`_recover_interrupted_swap`.
+Under several ranks the lead (rank 0) alone recovers, swaps and writes
+the metadata; the others write their windows and wait for it at a
+barrier, and a restore waits at a barrier before it reads.
 
-The in-cluster shard store (``store_run``) and saving from several
-processes need the runtime, which is not ported (ROADMAP.md, Queue 1 item
-5): asking for either raises ``NotImplementedError``.
+``CheckpointManager(store_run=...)`` also saves into the in-cluster shard
+store (``ray_tpu_torch.checkpoint.AsyncCheckpointer``, needs
+``ray_tpu_torch.init``) and restores from it when no directory does.
 """
 
 from __future__ import annotations
 
+import glob
 import json
 import logging
 import os
@@ -26,6 +35,7 @@ import shutil
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch.train.step import (
@@ -42,8 +52,7 @@ logger = logging.getLogger("ray_tpu_torch.train")
 # directories are still found.
 CKPT_DIR_PREFIX = "ckpt-"
 _LEGACY_PREFIX = "checkpoint_"
-STATE_FILE = "state.pt"
-_RUNTIME = "ROADMAP.md, Queue 1 item 5 (modules bound to the runtime)"
+STATE_FILE = "state.r{rank}.pt"  # one per rank
 
 
 def checkpoint_dir_name(index: int) -> str:
@@ -69,14 +78,70 @@ def list_checkpoint_dirs(directory: str) -> list[tuple[int, str]]:
     return sorted(out)
 
 
-def _single_process() -> None:
-    if (torch.distributed.is_available()
-            and torch.distributed.is_initialized()
-            and torch.distributed.get_world_size() > 1):
-        raise NotImplementedError(
-            "checkpoints from several processes are not ported yet "
-            f"({_RUNTIME})"
-        )
+def _rank_world() -> tuple[int, int]:
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _owned_windows(tensors: dict[str, torch.Tensor], rank: int,
+                   world: int) -> dict[str, list]:
+    """{name: [(index, host tensor)]} this rank writes: every DTensor's
+    local window, and the whole tensors it owns round-robin over the
+    sorted names (checkpoint/manifest.py's partition)."""
+    from ray_tpu_torch.checkpoint import manifest
+
+    out = {}
+    for i, name in enumerate(sorted(tensors)):
+        t = tensors[name]
+        if manifest._is_process_sharded(t) or i % world == rank:
+            shards = manifest.local_shards(t)
+            if shards:
+                out[name] = [(idx, w.cpu()) for idx, w in shards]
+    return out
+
+
+def _assemble(path: str) -> tuple[str, dict[str, torch.Tensor]]:
+    """(kind, whole tensors) from every rank's file under ``path``."""
+    files = sorted(glob.glob(os.path.join(path,
+                                          STATE_FILE.format(rank="*"))))
+    if not files:
+        raise FileNotFoundError(f"checkpoint {path}: no state file")
+    payloads = [torch.load(f, map_location="cpu", weights_only=True)
+                for f in files]
+    world = payloads[0]["world"]
+    if len(payloads) != world:
+        raise ValueError(f"checkpoint {path}: {len(payloads)} of {world} "
+                         "ranks' files")
+    out = {}
+    for name, (shape, dtype) in payloads[0]["shapes"].items():
+        t = torch.empty(shape, dtype=getattr(torch, dtype))
+        covered = 0
+        for payload in payloads:
+            for index, w in payload["windows"].get(name, ()):
+                if index is None:
+                    t.copy_(w)
+                else:
+                    t[tuple(slice(a, b) for a, b in index)] = w
+                covered += w.numel()
+        if covered != t.numel():
+            raise ValueError(f"checkpoint {path}: {name}'s windows cover "
+                             f"{covered} of {t.numel()} elements")
+        out[name] = t
+    return payloads[0]["kind"], out
+
+
+def _place(t: torch.Tensor, like: torch.Tensor, device) -> torch.Tensor:
+    """A whole host tensor placed as ``like``: cut to this rank's shard on
+    a DTensor's mesh, else on ``device`` or ``like``'s device."""
+    from torch.distributed.tensor import DTensor
+
+    from ray_tpu_torch.parallel.sharding import distribute
+
+    if isinstance(like, DTensor):
+        return distribute(t.to(like.to_local().device), like.device_mesh,
+                          like.placements)
+    return t.to(device or like.device)
 
 
 def _named_tensors(state: Any) -> tuple[str, dict[str, torch.Tensor]]:
@@ -95,28 +160,46 @@ def _named_tensors(state: Any) -> tuple[str, dict[str, torch.Tensor]]:
 def save_checkpoint(path: str, state: Any,
                     metadata: dict | None = None) -> str:
     """Write ``state`` (a TrainState or a nested dict of tensors) to the
-    directory ``path``; returns its absolute path. The file is synced to
-    disk before the swap."""
-    _single_process()
+    directory ``path``; returns its absolute path. Under a process group
+    of several ranks every rank calls this with the same ``path`` (on a
+    filesystem they share) and returns once the lead has swapped the
+    checkpoint in. The files are synced to disk before the swap."""
+    rank, world = _rank_world()
     path = os.path.abspath(path)
     tmp = f"{path}.tmp"
     old = f"{path}.old"
-    _recover_interrupted_swap(path)
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp)
+    if rank == 0:
+        # Lead-only: a non-lead recovering concurrently with the lead's
+        # two-rename swap would resurrect the old dir mid-swap.
+        _recover_interrupted_swap(path)
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
     kind, tensors = _named_tensors(state)
-    with open(os.path.join(tmp, STATE_FILE), "wb") as f:
-        torch.save({"kind": kind, "tensors": tensors}, f)
+    if world > 1:
+        dist.barrier()  # the lead's fresh tmp dir exists
+    payload = {
+        "kind": kind, "world": world,
+        "shapes": {k: (tuple(t.shape), str(t.dtype).removeprefix("torch."))
+                   for k, t in tensors.items()},
+        "windows": _owned_windows(tensors, rank, world),
+    }
+    with open(os.path.join(tmp, STATE_FILE.format(rank=rank)), "wb") as f:
+        torch.save(payload, f)
         f.flush()
         os.fsync(f.fileno())
-    if metadata is not None:
-        with open(os.path.join(tmp, "metadata.json"), "w") as f:
-            json.dump(metadata, f)
-    if os.path.exists(path):
-        os.rename(path, old)
-    os.rename(tmp, path)
-    shutil.rmtree(old, ignore_errors=True)
+    if world > 1:
+        dist.barrier()  # every rank's windows are on disk
+    if rank == 0:
+        if metadata is not None:
+            with open(os.path.join(tmp, "metadata.json"), "w") as f:
+                json.dump(metadata, f)
+        if os.path.exists(path):
+            os.rename(path, old)
+        os.rename(tmp, path)
+        shutil.rmtree(old, ignore_errors=True)
+    if world > 1:
+        dist.barrier()  # the swap is done: every rank may read it
     return path
 
 
@@ -135,19 +218,23 @@ def _recover_interrupted_swap(path: str) -> None:
 
 def restore_checkpoint(path: str, target: Any = None,
                        device: str | torch.device | None = None) -> Any:
-    """Restore the state saved at ``path``.
+    """Restore the state saved at ``path`` (by one process or several).
 
     With ``target`` (a TrainState or dict like the one saved), every leaf
     must have the target's name, shape and dtype, or this raises: nothing
-    is cast. Leaves go to the target's devices (or to ``device``), and
-    keep the target's ``requires_grad``. Without a target they go to
-    ``device`` (default "cuda"); a TrainState comes back as one, with
-    parameters requiring grad."""
+    is cast. Leaves go where the target's are (a DTensor target takes
+    this rank's shard on its mesh; others go to ``device`` or the
+    target's device), and keep the target's ``requires_grad``. Without a
+    target they go to ``device`` (default "cuda") whole; a TrainState
+    comes back as one, with parameters requiring grad. Under several
+    ranks every rank calls this."""
+    rank, world = _rank_world()
     path = os.path.abspath(path)
-    _recover_interrupted_swap(path)
-    payload = torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
-                         weights_only=True)
-    kind, tensors = payload["kind"], payload["tensors"]
+    if rank == 0:
+        _recover_interrupted_swap(path)
+    if world > 1:
+        dist.barrier()  # non-leads never race the lead's recovery rename
+    kind, tensors = _assemble(path)
     if target is None:
         dev = resolve_device(device or "cuda")
         tensors = {k: t.to(dev) for k, t in tensors.items()}
@@ -172,7 +259,7 @@ def restore_checkpoint(path: str, target: Any = None,
                 f"checkpoint {path}: {key} is {t.dtype} {tuple(t.shape)}, "
                 f"the target's {w.dtype} {tuple(w.shape)}"
             )
-        out[key] = t.to(dev or w.device)
+        out[key] = _place(t, w, dev)
     if kind == "train_state":
         restored = train_state_from_dict(out)
         for (_, p), (_, w) in zip(_flatten(restored.params),
@@ -195,7 +282,13 @@ def load_metadata(path: str) -> dict:
 class CheckpointManager:
     """Keep the top K checkpoints under a directory, by step or by a
     metric (``score_attribute`` / ``score_order``); the latest is never
-    deleted, since it is the resume point."""
+    deleted, since it is the resume point. With ``store_run`` every save
+    also goes into the in-cluster shard store under that run name
+    (asynchronously: :class:`~ray_tpu_torch.checkpoint.AsyncCheckpointer`),
+    and :meth:`restore_latest_valid` falls back to the store when no
+    directory restores (a cluster without shared storage still
+    resumes). Under several ranks every rank calls :meth:`save`; the lead
+    prunes."""
 
     def __init__(
         self,
@@ -206,11 +299,15 @@ class CheckpointManager:
         score_order: str = "max",
         store_run: str | None = None,
     ):
+        self.store_run = store_run
+        self._store = None
         if store_run is not None:
-            raise NotImplementedError(
-                f"CheckpointManager(store_run=...): the in-cluster shard "
-                f"store is not ported yet ({_RUNTIME})"
-            )
+            from ray_tpu_torch.checkpoint import AsyncCheckpointer, saver
+
+            saver._runtime()  # raises without ray_tpu_torch.init
+            rank, world = _rank_world()
+            self._store = AsyncCheckpointer(run=store_run, rank=rank,
+                                            world=world)
         self.dir = os.path.abspath(directory)
         os.makedirs(self.dir, exist_ok=True)
         self.num_to_keep = num_to_keep
@@ -232,7 +329,10 @@ class CheckpointManager:
         save_checkpoint(
             path, state, metadata={"step": step, "metrics": metrics or {}}
         )
-        self._prune()
+        if self._store is not None:
+            self._store.save(step, state, metrics)
+        if _rank_world()[0] == 0:
+            self._prune()
         return path
 
     def _score(self, name: str) -> float:
@@ -283,6 +383,21 @@ class CheckpointManager:
                     "checkpoint %s failed to restore (%r); falling back "
                     "to the previous one", name, e,
                 )
+        if self._store is not None:
+            # No directory restored (or none exists): the shard store.
+            from ray_tpu_torch import checkpoint as dist_ckpt
+
+            try:
+                self._store.wait()
+                step = dist_ckpt.latest_step(self.store_run)
+                if step is not None:
+                    state = dist_ckpt.restore(self.store_run, step,
+                                              target=target)
+                    return dist_ckpt.make_uri(self.store_run, step), state
+            # The store degraded: behave like no checkpoint found.
+            except Exception as e:  # noqa: BLE001
+                logger.warning("shard-store restore for run %r failed: %r",
+                               self.store_run, e)
         return None
 
     def best(self) -> str | None:

@@ -25,8 +25,9 @@ the whole tensors, and AdamW updates the local shards. On a mesh with
 pp > 1 every pp rank runs the same step: the Llama leaves carry
 "layers", not "stage", so they and the batch are replicated over pp, as
 under the reference's partitioner (a pipelined step goes through
-parallel/pipeline.py). The device-memory ledger claims are not ported
-(ROADMAP.md, Queue 1).
+parallel/pipeline.py). The resident state's bytes are claimed in the
+runtime's device-memory ledger (``runtime/memory.py``), as the
+reference's are.
 """
 
 from __future__ import annotations

@@ -59,7 +59,8 @@ def test_roundtrip_plain_tree(tmp_path):
     path = ck.save_checkpoint(str(tmp_path / "ck"), state,
                               metadata={"step": 7})
     assert ck.load_metadata(path)["step"] == 7
-    assert sorted(os.listdir(path)) == ["metadata.json", ck.STATE_FILE]
+    assert sorted(os.listdir(path)) == ["metadata.json",
+                                        ck.STATE_FILE.format(rank=0)]
     out = ck.restore_checkpoint(path, device="cpu")
     assert torch.equal(out["w"], state["w"])
     assert int(out["step"]) == 7
@@ -84,7 +85,8 @@ def test_manager_restore_latest_valid_falls_back(tmp_path):
         mgr.save(step, _x(step))
     newest = mgr.latest()
     assert newest.endswith("ckpt-00000002")
-    with open(os.path.join(newest, ck.STATE_FILE), "r+b") as f:
+    state_file = os.path.join(newest, ck.STATE_FILE.format(rank=0))
+    with open(state_file, "r+b") as f:
         f.truncate(100)  # cut mid-write
     with pytest.raises(Exception):
         ck.restore_checkpoint(newest, device="cpu")  # a plain restore fails
@@ -165,7 +167,9 @@ def test_restore_refuses_another_shape_or_dtype(tmp_path):
 
 
 def test_runtime_features_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    """The shard store lives in the runtime: without ray_tpu_torch.init a
+    manager asked for it raises at once, not at its first save."""
+    with pytest.raises(RuntimeError, match="initialized runtime"):
         ck.CheckpointManager(str(tmp_path / "run"), store_run="r")
 
 

@@ -238,6 +238,13 @@ ENGINE_CASES = {
     "prefix_sharing": (dict(kv="paged", page_size=16, max_batch=3,
                             max_seq=64),
                        [HEAD + [5, 6], HEAD + [9], HEAD[:16] + [1]], 5),
+    # page sizes the kernel's stage rule treats apart: 16 pages of 4 per
+    # stage, and a page over two stages (the reference engine's prefill
+    # buckets take page sizes that divide them only)
+    "page4": (dict(kv="paged", page_size=4, max_batch=2, max_seq=64),
+              [[1, 2, 3, 4, 5], [7, 8], [9, 10, 11, 12]], 6),
+    "page128": (dict(kv="paged", page_size=128, max_batch=2, max_seq=256),
+                [list(range(1, 140)), [7, 8]], 6),
 }
 
 

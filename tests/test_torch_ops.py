@@ -110,8 +110,13 @@ def test_port_imports_neither_jax_nor_ray_tpu():
                  "ring_attention.py", "ulysses.py", "pipeline.py",
                  "showcase.py"):
         assert REPO / "ray_tpu_torch" / "parallel" / name in files
-    for name in ("checkpoint.py", "dataloader.py", "memory.py"):
+    for name in ("checkpoint.py", "dataloader.py", "memory.py",
+                 "session.py", "trainer.py", "zero.py", "telemetry.py",
+                 "admission.py"):
         assert REPO / "ray_tpu_torch" / "train" / name in files
+    for name in ("__init__.py", "manifest.py", "store.py", "saver.py",
+                 "restore.py", "remote.py", "erasure.py", "fork.py"):
+        assert REPO / "ray_tpu_torch" / "checkpoint" / name in files
     assert REPO / "ray_tpu_torch" / "_native" / "dataloader.py" in files
     for name in ("api.py", "placement.py", "exceptions.py", "version.py",
                  "_native/shmstore.py", "_private/config.py",
@@ -151,7 +156,7 @@ def test_spawned_test_modules_import_no_jax_at_top_level():
     names = ("test_torch_parallel_train.py", "test_torch_parallel_engine.py",
              "test_torch_sequence_parallel.py", "test_torch_pipeline.py",
              "test_torch_showcase.py", "test_torch_multislice.py",
-             "torch_spawn_util.py")
+             "test_torch_ckpt_manifest.py", "torch_spawn_util.py")
     for name in names:
         tree = ast.parse((REPO / "tests" / name).read_text())
         for node in tree.body:

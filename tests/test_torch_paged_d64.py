@@ -16,7 +16,7 @@ import torch
 from ray_tpu.ops.pallas.paged_attention import paged_attention as jax_paged
 from ray_tpu_torch.ops.paged_attention import (
     KERNEL_HEAD_DIMS,
-    KERNEL_PAGE_SIZES,
+    stage_layout,
     pages_per_split,
     paged_attention,
     paged_attention_reference,
@@ -69,7 +69,7 @@ def _kernel_split(b, k, maxp):
 
 
 def test_head_dim_64_is_built_and_padded():
-    assert 64 in KERNEL_HEAD_DIMS and P in KERNEL_PAGE_SIZES
+    assert 64 in KERNEL_HEAD_DIMS and stage_layout(P) == (64 // P, 1)
     assert row_block(H // HKV) == 4  # decode: 3 live rows of 4
     assert row_block(4 * H // HKV) == 16  # verify: 12 live rows of 16
 

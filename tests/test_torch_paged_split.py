@@ -23,6 +23,8 @@ from ray_tpu_torch.ops.paged_attention import (
     paged_attention_reference,
     paged_attention_split_reference,
     row_block,
+    stage_cells,
+    stage_layout,
 )
 
 TOL = dict(atol=2e-5, rtol=2e-5)
@@ -209,3 +211,58 @@ def test_pages_per_split_counts_whole_stages(batch, groups, max_pages,
                                        (16, 16), (32, 16)])
 def test_row_block(rows, want):
     assert row_block(rows) == want
+
+
+@pytest.mark.parametrize(
+    "page,want",
+    [(1, (64, 1)), (4, (16, 1)), (12, (5, 1)), (48, (1, 1)), (64, (1, 1)),
+     (65, (1, 2)), (128, (1, 2)), (200, (1, 4))],
+)
+def test_stage_layout(page, want):
+    """Whole pages per stage up to 64 tokens (P = 12: five pages, 60
+    cells), 64-cell parts of one page above."""
+    assert stage_layout(page) == want
+    cells = stage_cells(page)
+    assert cells[0][0] == 0 and cells[-1][1] == page
+    assert all(0 < c1 - c0 <= 64 for c0, c1 in cells)
+
+
+@pytest.mark.parametrize(
+    "k,dh,p,positions",
+    [
+        # 16 four-token pages per stage; frontiers on page and stage edges
+        (1, 64, 4, [0, 3, 63, 64, 201]),
+        (4, 128, 4, [60, 61, 62, 125, 5]),
+        # five 12-token pages per stage: every stage is 60 of 64 cells
+        (1, 128, 12, [11, 59, 60, 119, 230]),
+        (4, 64, 12, [56, 57, 58, 179, 0]),
+        # one 48-token page per stage: 48 of 64 cells
+        (1, 64, 48, [47, 48, 95, 0, 250]),
+        (4, 128, 48, [44, 45, 46, 143, 200]),
+        # a 128-token page spans two stages of 64 cells
+        (1, 128, 128, [63, 64, 127, 128, 250]),
+        (4, 64, 128, [60, 61, 62, 125, 190]),
+    ],
+)
+@pytest.mark.parametrize("wide", [False, True])
+def test_split_any_page_size_matches_reference_kernel(k, dh, p, positions,
+                                                      wide):
+    """Page sizes that are not 8-64 or not powers of two, at the split the
+    wrapper launches with on a 132-SM card and at two stages' pages
+    (``wide``), stale cells poisoned past each frontier; the split plain
+    version steps through the kernel's stages (stage_layout)."""
+    b, h, hkv = len(positions), 8, 2
+    maxp = -(-256 // p)
+    rows = h // hkv * k
+    groups = hkv * -(-rows // row_block(rows))
+    step = stage_layout(p)[0]
+    pps = (2 * step if wide
+           else pages_per_split(b, groups, maxp, sm_count=132, page_size=p))
+    assert pps % step == 0
+    clean = _case(17, b, k, h, hkv, dh, p, maxp, positions)
+    want = _run(clean, hkv, pps)[2]
+    split, single, _ = _run(
+        _case(17, b, k, h, hkv, dh, p, maxp, positions, poison=True), hkv,
+        pps)
+    np.testing.assert_allclose(split, want, **TOL)
+    np.testing.assert_allclose(single, want, **TOL)

@@ -33,6 +33,11 @@ COPIED = (
     "_private/rpc.py",
     "_private/test_utils.py",
     "_private/accelerators/accelerator.py",
+    "checkpoint/__init__.py",
+    "checkpoint/erasure.py",
+    "checkpoint/fork.py",
+    "checkpoint/remote.py",
+    "checkpoint/store.py",
     "collective/backends/__init__.py",
     "collective/flight_recorder.py",
     "experimental/__init__.py",
@@ -47,6 +52,7 @@ COPIED = (
     "runtime/runtime_env.py",
     "runtime/transfer.py",
     "runtime/worker_main.py",
+    "train/session.py",
     "util/__init__.py",
     "util/metrics.py",
     "util/rpdb.py",
@@ -95,6 +101,27 @@ PORTED = {
         "the port's build_library takes sources under ray_tpu_torch/native/",
         {"_load"},
     ),
+    "checkpoint/manifest.py": (
+        "leaves are torch tensors: a pytree walk of its own with jax's key "
+        "strings, a DTensor's local window in place of a jax.Array's "
+        "addressable shards, bytes and dtype names without ml_dtypes",
+        {"import dataclasses", "import sys", "_np_dtype", "dtype_name",
+         "host_bytes", "_as_tensor", "_is_node", "_children",
+         "tree_flatten_with_keys", "tree_unflatten", "flatten_with_keys",
+         "_is_dtensor", "_is_process_sharded", "dtensor_window",
+         "local_shards", "assemble_leaf"},
+    ),
+    "checkpoint/restore.py": (
+        "the port's pytree walk, and leaves placed as the target's or "
+        "shardings' DTensors (parallel/sharding.py) in place of "
+        "jax.device_put",
+        {"import numpy", "_fingerprint_have", "restore", "_place"},
+    ),
+    "checkpoint/saver.py": (
+        "the snapshot copies into pinned host tensors with non-blocking "
+        "copies and one stream sync per device",
+        {"import numpy", "AsyncCheckpointer"},
+    ),
     "collective/__init__.py": (
         "the NCCL backends replace the XLA ones: AUTO reads torch.cuda's "
         "device count, init_collective_group builds NcclMeshGroup / "
@@ -122,11 +149,12 @@ PORTED = {
     ),
     "collective/bucketer.py": (
         "leaves may be torch tensors (buckets built on their device), "
-        "trees flatten without jax, and the analytic cost reads NVLink",
+        "trees flatten through checkpoint/manifest.py's walk (jax's key "
+        "strings, without jax), and the analytic cost reads NVLink",
         {"import sys", "bucket_analytic_cost_s", "LINK_BANDWIDTH",
          "link_bandwidth_per_gpu", "collective_wire_factor", "_leaf", "_dtype_key", "_itemsize", "_numel", "_floating",
          "_concat", "_contiguous", "_zeros", "_zeros_of",
-         "_tree_flatten_with_keys", "_tree_unflatten", "PendingSync",
+         "import ray_tpu_torch.checkpoint.manifest", "PendingSync",
          "BucketStream", "PendingZeroGather", "PendingZeroSync",
          "GradBucketer"},
     ),
@@ -154,6 +182,29 @@ PORTED = {
          "tag_arrays", "_leaves", "_cuda", "_device_stats",
          "_live_array_bytes", "device_capacity_bytes", "oom_report"},
     ),
+    "train/admission.py": (
+        "the gang's accelerators are the runtime's GPU resource",
+        {"cluster_chips"},
+    ),
+    "train/zero.py": (
+        "the shard-local update is the port's AdamW per leaf (a one-leaf "
+        "tree, clipped by the norm the caller passes), not optax",
+        {"import torch", "_LEAF", "ZeroOptimizer"},
+    ),
+    "train/telemetry.py": (
+        "MFU reads the GPU's peak and the process group's size; no jax "
+        "host-sync watch and no profile hook (train/profile.py is not "
+        "ported)",
+        {"PEAK_FLOPS", "DEFAULT_PEAK_FLOPS", "peak_flops_per_chip",
+         "host_sync_attribution", "compute_mfu", "finish_step"},
+    ),
+    "train/trainer.py": (
+        "TorchTrainer: GPU scaling, a NCCL collective group and a default "
+        "torch.distributed group per worker, no jax platform or watch",
+        {"import os", "import tempfile", "ScalingConfig", "RunConfig",
+         "_init_default_process_group", "TrainWorker", "JaxTrainer",
+         "TorchTrainer"},
+    ),
     "util/tracing.py": (
         "jax_profile becomes torch_profile (torch.profiler, Chrome trace)",
         {"jax_profile", "torch_profile"},
@@ -173,11 +224,10 @@ PORTED = {
 MISSING = {
     "ray_tpu_torch._private.lint",
     "ray_tpu_torch.autoscaler",
-    "ray_tpu_torch.checkpoint",
     "ray_tpu_torch.dag",
+    "ray_tpu_torch.data",
     "ray_tpu_torch.serve",
     "ray_tpu_torch.train.profile",
-    "ray_tpu_torch.train.session",
 }
 
 

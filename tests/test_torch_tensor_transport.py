@@ -14,6 +14,7 @@ import ray_tpu_torch
 from ray_tpu_torch import api as core_api
 from ray_tpu_torch import experimental
 from ray_tpu_torch._private.ids import ObjectID
+from ray_tpu_torch.exceptions import ObjectLostError
 from torch_runtime_util import start_cluster, stop_cluster
 
 
@@ -160,16 +161,12 @@ def test_repeat_get_hits_consumer_cache(actors):
 def test_free_tensors_drops_payload(actors):
     """The payload is freed at its producer. A later get walks the
     resolution ladder to its last rung, the remote spill tier
-    (``checkpoint.remote``), which the port does not have yet (it comes
-    with ``checkpoint/``, after this slice): where the JAX package raises
-    ObjectLostError, the port raises ModuleNotFoundError naming the
-    missing package (ROADMAP, Queue 3); this case then changes to the
-    reference's ObjectLostError."""
+    (``checkpoint.remote``); with no tier configured the object is lost,
+    and the get raises ObjectLostError, as the JAX package does."""
     p, _ = actors
     ref = p.make_tensor.options(tensor_transport=True).remote(10_000, 1.0)
     ray_tpu_torch.get(ref, timeout=60)
     assert experimental.free_tensors([ref]) == 1
     assert ray_tpu_torch.get(p.stored_count.remote(), timeout=60) >= 0
-    with pytest.raises(ModuleNotFoundError,
-                       match="ray_tpu_torch.checkpoint"):
+    with pytest.raises(ObjectLostError):
         ray_tpu_torch.get(ref, timeout=30)
