@@ -180,6 +180,36 @@ Phase 12 the Train library on the runtime: (a) phase 7's bench state
          fsdp=2 steps (losses and gradient norms within
          TWO_RANK_LOSS_REL / TWO_RANK_NORM_REL of one process), and the
          state checkpointed from both ranks and restored whole.
+Phase 13 Serve on the runtime: (a) serve.run(build_llm_deployment(
+         "llama3_8b", ...)) with one num_gpus=1 replica, which draws the
+         full-size weights from the seed in its own process (max_batch 8,
+         64-token pages); the HTTP proxy; the replica's cold start to its
+         first answer; phase 2's 8 prompts at once, 4 as unary JSON and 4
+         as SSE streams ending in data: [DONE], 32 greedy tokens each
+         (after a 2-token warm-up pass); the replica's engine stats, read
+         from the replica actor, must show P1 launched 32 times per decode step (its
+         process counted from 0); every stream held by stream_check to
+         the plain path on the same weights drawn again in the driver
+         after the deployment is deleted; client TTFT (SSE), the engine's
+         ttft_s (unary) and SSE decode tokens/s per stream. (b) mini as 2
+         replicas of num_gpus=0.5: 16 requests through a DeploymentHandle,
+         both replicas answer and launch P1 (12 per decode step each),
+         the GPU fully leased; one replica SIGKILLed
+         (_private/test_utils.kill_one_replica) under 24 unary requests,
+         which all answer; the replacement takes its half GPU back; every
+         stream held by stream_check; serve.shutdown() gives the GPU back.
+Phase 14 Compiled Graphs: two num_gpus=0.5 actors each run F1 at phase
+         10's shape on inputs drawn on the card from the seed the graph's
+         input carries (plus the rank); an allreduce node sums their O's
+         on the card (each rank's result a bf16 CUDA tensor, equal on both
+         ranks, held to the sum of the same two F1 calls in the driver by
+         FLASH_ORACLE_*); one F1 launch per execute in each actor; the
+         microseconds per execute() over 50 beside the same two calls by
+         .remote() and get, the bytes per step through the shared-memory
+         channels, and, for where the step's time goes, the same graph
+         without its allreduce and one returning O's norms (beside the
+         norms by .remote()); teardown removes the channels, and shutdown
+         leaves no store segment and no worker process.
 Timing   each kernel at the main path's shapes (CUDA events, cold L2):
          its time, its plain version's, its bound (P1 also at the verify
          step's K = 4 and at batch 64, on lines of their own), and for the flash
@@ -211,9 +241,11 @@ without a CUDA device it exits 1 before any phase.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import dataclasses
 import gc
+import glob
 import importlib
 import json
 import math
@@ -3565,6 +3597,447 @@ def phase12(seed, p4, p8):
     return out
 
 
+# ------------------------------------------------------------ phase 13
+P13_TOKENS = 32  # greedy tokens per request, as phase 2
+P13_ENGINE = {"max_batch": 8, "max_seq": 2048, "page_size": 64}
+
+
+def wait_free_gpu(want, timeout=120.0):
+    """The cluster's available GPU once it reads ``want`` (or the last
+    reading at the deadline)."""
+    import ray_tpu_torch as rt
+
+    deadline = time.monotonic() + timeout
+    while True:
+        free = rt.available_resources().get("GPU", 0.0)
+        if free == want or time.monotonic() > deadline:
+            return free
+        time.sleep(0.2)
+
+
+def http_llm(port, route, body, stream):
+    """One request to the HTTP proxy, timed from the send: the unary JSON
+    answer, or an SSE stream's token deltas (which must end in
+    ``data: [DONE]``). Returns {"tokens", "first_s", "last_s",
+    "engine_ttft_s", "deltas"}; for a unary answer first_s and last_s are
+    the answer's arrival."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    headers = {"Content-Type": "application/json"}
+    if stream:
+        headers["Accept"] = "text/event-stream"
+    t0 = time.perf_counter()
+    conn.request("POST", route, body=json.dumps(
+        {**body, "stream": stream}), headers=headers)
+    resp = conn.getresponse()
+    check(resp.status == 200, f"HTTP {resp.status} from the proxy")
+    if not stream:
+        out = json.loads(resp.read())
+        t = time.perf_counter() - t0
+        conn.close()
+        return {"tokens": out["tokens"], "first_s": t, "last_s": t,
+                "engine_ttft_s": out["ttft_s"], "deltas": 1}
+    buf, tokens, deltas, done = b"", [], 0, False
+    first = last = None
+    while not done:
+        chunk = resp.read1(65536)
+        if not chunk:
+            break
+        now = time.perf_counter() - t0
+        buf += chunk
+        while b"\n\n" in buf:
+            event, buf = buf.split(b"\n\n", 1)
+            lines = event.decode().splitlines()
+            check("event: error" not in lines, f"SSE error event: {lines}")
+            for line in lines:
+                data = line.removeprefix("data: ")
+                if data == line:
+                    continue
+                if data == "[DONE]":
+                    done = True
+                    continue
+                delta = json.loads(data)["tokens"]
+                if delta:
+                    first = now if first is None else first
+                    last = now
+                    deltas += 1
+                tokens += delta
+    conn.close()
+    check(done, "an SSE stream did not end in data: [DONE]")
+    return {"tokens": tokens, "first_s": first, "last_s": last,
+            "engine_ttft_s": None, "deltas": deltas}
+
+
+def replica_stats(app, deployment, timeout=120):
+    """Each live replica's (pid, its LLMServer's engine stats), called on
+    that replica alone (the replicas from the controller's routing
+    list)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.api import ActorHandle
+    from ray_tpu_torch.serve.handle import CONTROLLER_NAME
+
+    controller = rt.get_actor(CONTROLLER_NAME)
+    _version, replicas = rt.get(controller.get_replicas.remote(deployment,
+                                                               app))
+    out = []
+    for actor_id, addr, _ in replicas:
+        rep = ActorHandle(actor_id, addr, "Replica")
+        pid = rt.get(rep.get_stats.remote(), timeout=timeout)["pid"]
+        stats = rt.get(rep.handle_request.remote("stats", (), {}, None),
+                       timeout=timeout)
+        out.append((pid, stats))
+    return out
+
+
+def p1_launches_check(label, stats, cfg):
+    """A replica's P1 launches (its process's count, 0 when the process
+    started) against its engine's decode steps: one per layer per step,
+    and at least one step."""
+    p1 = stats["kernel_launches"]["paged_attention"]
+    steps = stats["decode_steps"]
+    check(steps > 0 and p1 == cfg.n_layers * steps,
+          f"{label}: P1 launched {p1} times for {steps} decode steps x "
+          f"{cfg.n_layers} layers")
+    return p1, steps
+
+
+def phase13a(seed, p2, serve, timeout=900):
+    """llama3_8b from one whole-GPU replica behind the HTTP proxy."""
+    from ray_tpu_torch.llm import build_llm_deployment
+    from ray_tpu_torch.models.llama import PRESETS, init_params
+
+    cfg = PRESETS["llama3_8b"]
+    prompts = p2["prompts"]
+    t0 = time.perf_counter()
+    serve.run(build_llm_deployment(
+        "llama3_8b", engine_kwargs={**P13_ENGINE, "seed": seed},
+        ray_actor_options={"num_gpus": 1}),
+        name="llm", route_prefix="/llm", timeout_s=timeout)
+    port = serve.start_http()
+    http_llm(port, "/llm", {"prompt": prompts[0], "max_tokens": 1}, False)
+    cold_s = time.perf_counter() - t0
+    check(wait_free_gpu(0.0) == 0.0,
+          "the llama3_8b replica does not hold the GPU")
+
+    def burst(max_tokens):
+        """Phase 2's 8 prompts at once: even ones unary, odd ones SSE."""
+        with concurrent.futures.ThreadPoolExecutor(len(prompts)) as pool:
+            futs = [pool.submit(http_llm, port, "/llm",
+                                {"prompt": p, "max_tokens": max_tokens},
+                                i % 2 == 1)
+                    for i, p in enumerate(prompts)]
+            return [f.result() for f in futs]
+
+    burst(2)  # warm-up, as phase 2's: cuBLAS picks kernels per shape
+    outs = burst(P13_TOKENS)
+    [(_pid, stats)] = replica_stats("llm", "LLMServer")
+    check(all(len(o["tokens"]) == P13_TOKENS for o in outs),
+          "a served request did not finish with 32 tokens")
+    p1, steps = p1_launches_check("13a replica", stats, cfg)
+    sse = [o for i, o in enumerate(outs) if i % 2 == 1]
+    unary = [o for i, o in enumerate(outs) if i % 2 == 0]
+    check(all(o["deltas"] > 1 for o in sse),
+          "an SSE stream arrived in one frame")
+    ttft = [o["first_s"] for o in sse]
+    engine_ttft = [o["engine_ttft_s"] for o in unary]
+    per_stream = [(len(o["tokens"]) - 1) / (o["last_s"] - o["first_s"])
+                  for o in sse]
+    serve.delete("llm")
+    check(wait_free_gpu(1.0) == 1.0,
+          "the GPU did not come back after the llama3_8b deployment")
+    streams = [o["tokens"] for o in outs]
+    params = init_params(cfg, seed, device="cuda", dtype=cfg.dtype)
+    stream_check(cfg, params, prompts, streams, "13a served llama3_8b")
+    same = sum(a == b for a, b in zip(streams, p2["outs"]))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  13a: llama3_8b replica cold start (serve.run to its first "
+          f"answer) {cold_s:.2f} s; P1 {p1} launches for {steps} decode "
+          f"steps; F1 {stats['kernel_launches']['flash_attention_forward']}; "
+          f"client TTFT over the 4 SSE streams mean "
+          f"{float(np.mean(ttft)):.3f} s, max {float(np.max(ttft)):.3f} s; "
+          f"engine ttft_s over the 4 unary mean "
+          f"{float(np.mean(engine_ttft)):.3f} s, max "
+          f"{float(np.max(engine_ttft)):.3f} s; SSE decode per stream "
+          f"{float(np.mean(per_stream)):.1f} tokens/s (phase 2 in process "
+          f"{p2['decode_tokens_per_s'] / len(prompts):.1f} per stream of "
+          f"{p2['decode_tokens_per_s']:.1f} over 8); {same} of 8 streams "
+          f"equal phase 2's")
+    return {"cold_s": cold_s, "ttft_mean": float(np.mean(ttft)),
+            "ttft_max": float(np.max(ttft)),
+            "engine_ttft_mean": float(np.mean(engine_ttft)),
+            "engine_ttft_max": float(np.max(engine_ttft)),
+            "sse_tokens_per_s": float(np.mean(per_stream)),
+            "p1": p1, "steps": steps}
+
+
+def phase13b(seed, m2, serve, timeout=600):
+    """mini as two half-GPU replicas behind a DeploymentHandle, one of
+    them SIGKILLed under load."""
+    import threading
+
+    from ray_tpu_torch._private.test_utils import kill_one_replica
+    from ray_tpu_torch.llm import build_llm_deployment
+    from ray_tpu_torch.models.llama import PRESETS, init_params
+
+    cfg = PRESETS["mini"]
+    handle = serve.run(build_llm_deployment(
+        "mini", num_replicas=2, engine_kwargs={**P13_ENGINE, "seed": seed},
+        ray_actor_options={"num_gpus": 0.5}),
+        name="mini", route_prefix="/mini", timeout_s=timeout)
+    check(wait_free_gpu(0.0) == 0.0,
+          "two half-GPU replicas do not hold the whole GPU")
+    prompts = list(m2["prompts"]) * 2
+    futs = [handle.generate.remote(p, max_tokens=P13_TOKENS)
+            for p in prompts]
+    outs = [f.result(timeout=timeout)["tokens"] for f in futs]
+    check(all(len(o) == P13_TOKENS for o in outs),
+          "a mini request did not finish with 32 tokens")
+    before = replica_stats("mini", "LLMServer")
+    check(len(before) == 2, f"{len(before)} mini replicas, not 2")
+    for pid, st in before:
+        check(st["requests_finished"] > 0,
+              f"the mini replica of pid {pid} answered no request")
+        p1_launches_check(f"13b replica {pid}", st, cfg)
+
+    # SIGKILL one replica under unary load: every request still answers.
+    rng = np.random.default_rng(seed + 13)
+    kill_prompts = serving_prompts(cfg, rng, (20, 63, 200, 511) * 6)
+    kill_outs, errors = [None] * len(kill_prompts), []
+
+    def traffic():
+        for i, p in enumerate(kill_prompts):
+            try:
+                kill_outs[i] = handle.generate.remote(
+                    p, max_tokens=8).result(timeout=120)["tokens"]
+            except Exception as e:  # noqa: BLE001 - reported below
+                errors.append(repr(e))
+
+    t = threading.Thread(target=traffic, daemon=True)
+    t.start()
+    time.sleep(0.5)
+    killed = kill_one_replica("LLMServer", "mini")
+    t.join(timeout=300)
+    check(not t.is_alive(), "unary traffic hung after the replica SIGKILL")
+    check(not errors and all(o is not None and len(o) == 8
+                             for o in kill_outs),
+          f"requests failed across the replica SIGKILL: {errors[:3]}")
+    t0 = time.perf_counter()
+    deadline = time.monotonic() + timeout
+    while True:
+        st = serve.status()["mini"]["LLMServer"]
+        if st["replicas"] == 2 and st["status"] == "HEALTHY":
+            break
+        check(time.monotonic() < deadline,
+              f"no replacement replica after the SIGKILL: {st}")
+        time.sleep(0.5)
+    replace_s = time.perf_counter() - t0
+    check(wait_free_gpu(0.0) == 0.0,
+          "the replacement replica did not take its half GPU back")
+    after = replica_stats("mini", "LLMServer")
+    old_pids = {pid for pid, _ in before}
+    check(len(after) == 2 and len({p for p, _ in after} - old_pids) == 1,
+          f"replicas after the kill: pids {[p for p, _ in after]}, before "
+          f"{sorted(old_pids)}")
+    serve.shutdown()
+    check(wait_free_gpu(1.0) == 1.0,
+          "serve.shutdown() did not give the GPU back")
+    params = init_params(cfg, seed, device="cuda", dtype=cfg.dtype)
+    stream_check(cfg, params, prompts, outs, "13b mini through the handle")
+    stream_check(cfg, params, kill_prompts, kill_outs,
+                 "13b mini across the SIGKILL")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  13b: mini on 2 half-GPU replicas (pids "
+          f"{sorted(old_pids)}): requests / P1 launches / decode steps "
+          + ", ".join(f"{st['requests_finished']} / "
+                      f"{st['kernel_launches']['paged_attention']} / "
+                      f"{st['decode_steps']}" for _, st in before)
+          + f"; SIGKILLed replica {killed[:12]}, {len(kill_prompts)} unary "
+          f"requests all answered; replacement healthy in {replace_s:.2f} s, "
+          f"available GPU 0.0 with 2 replicas, 1.0 after serve.shutdown()")
+    return {"replace_s": replace_s,
+            "launches": [st["kernel_launches"]["paged_attention"]
+                         for _, st in before]}
+
+
+def phase13(seed, p2, m2):
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+
+    print("phase 13: Serve on the card: llama3_8b behind the HTTP proxy, "
+          "mini on two half-GPU replicas")
+    rt.init(num_cpus=8)
+    try:
+        check(rt.cluster_resources().get("GPU") == 1.0,
+              "the cluster does not have the card's one GPU")
+        a = phase13a(seed, p2, serve)
+        b = phase13b(seed, m2, serve)
+    finally:
+        serve.shutdown()
+        rt.shutdown()
+    return {"a": a, "b": b}
+
+
+# ------------------------------------------------------------ phase 14
+P14_EXECUTES = 50
+
+
+class FlashRank:
+    """Phase 14's GPU actor: F1 at phase 10's shape on inputs drawn on
+    the card from the seed the graph's input carries (plus its rank)."""
+
+    def __init__(self, rank):
+        self.rank = rank
+
+    def reset(self):
+        from ray_tpu_torch.ops.flash_attention import flash_attention_forward
+
+        flash_attention_forward.launches = 0
+        return os.getpid()
+
+    def forward(self, seed):
+        from ray_tpu_torch.ops.flash_attention import flash_attention_forward
+
+        b, s, h, hkv, d = PHASE10_SHAPE
+        q, k, v, _ = flash_inputs(b, s, torch.bfloat16, seed + self.rank,
+                                  h=h, hkv=hkv, d=d)
+        return flash_attention_forward(q, k, v, True)[0]
+
+    def norm(self, seed):
+        """F1 as in forward, returning O's norm only (a 0-d tensor)."""
+        return self.forward(seed).float().norm()
+
+    def launches(self):
+        from ray_tpu_torch.ops.flash_attention import flash_attention_forward
+
+        return flash_attention_forward.launches
+
+
+def _children():
+    """Live (non-zombie) child processes of this process."""
+    me, out = os.getpid(), set()
+    for stat in glob.glob("/proc/[0-9]*/stat"):
+        try:
+            with open(stat) as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if int(fields[1]) == me and fields[0] != "Z":
+            out.add(int(stat.split("/")[2]))
+    return out
+
+
+def time_graph(cdag, seed, timeout=600):
+    """Microseconds per ``execute(...).get()`` over P14_EXECUTES, each
+    on a new seed."""
+    t0 = time.perf_counter()
+    for i in range(P14_EXECUTES):
+        cdag.execute(seed + 2 * i).get(timeout=timeout)
+    return (time.perf_counter() - t0) / P14_EXECUTES * 1e6
+
+
+def time_remote(ranks, method, seed, timeout=600):
+    """Microseconds per round of ``method`` on every rank by ``.remote()``
+    and one ``get``, over P14_EXECUTES rounds."""
+    import ray_tpu_torch as rt
+
+    t0 = time.perf_counter()
+    for i in range(P14_EXECUTES):
+        rt.get([getattr(r, method).remote(seed + 2 * i) for r in ranks],
+               timeout=timeout)
+    return (time.perf_counter() - t0) / P14_EXECUTES * 1e6
+
+
+def phase14(seed, timeout=600):
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.dag import InputNode, MultiOutputNode, allreduce
+    from ray_tpu_torch.dag.channel import _pack
+    from ray_tpu_torch.ops.flash_attention import flash_attention_forward
+
+    print("phase 14: a compiled graph: F1 in two half-GPU actors, their "
+          "outputs allreduced")
+    before = _children()
+    info = rt.init(num_cpus=4)
+    try:
+        ranks = [rt.remote(num_gpus=0.5)(FlashRank).remote(r)
+                 for r in range(2)]
+        rt.get([r.reset.remote() for r in ranks], timeout=timeout)
+        with InputNode() as inp:
+            outs = allreduce.bind([r.forward.bind(inp) for r in ranks])
+            graph = MultiOutputNode(outs)
+        cdag = graph.experimental_compile(buffer_size=16 << 20,
+                                          max_buffered=2)
+        chan_dir = cdag._chan_dir
+        got = cdag.execute(seed).get(timeout=timeout)
+        b, s, h, hkv, d = PHASE10_SHAPE
+        want = sum(flash_attention_forward(*flash_inputs(
+            b, s, torch.bfloat16, seed + r, h=h, hkv=hkv, d=d)[:3], True)[0]
+            for r in range(2))
+        for r, o in enumerate(got):
+            check(o.is_cuda and o.dtype == torch.bfloat16
+                  and o.shape == want.shape,
+                  f"rank {r}'s reduced O is {o.dtype} {tuple(o.shape)} on "
+                  f"{o.device}")
+        check(torch.equal(got[0], got[1]),
+              "the two ranks' allreduced outputs differ")
+        (atol, rtol), norm = FLASH_ORACLE_TOL, FLASH_ORACLE_NORM
+        compare("14 allreduced F1 O vs the driver's two calls", got[0], want,
+                atol, rtol, norm)
+        step_bytes = (len(_pack(((seed,), {})))
+                      + sum(len(_pack(o)) for o in got))
+        dag_us = time_graph(cdag, seed, timeout)
+        cdag.teardown()
+        launches = rt.get([r.launches.remote() for r in ranks],
+                          timeout=timeout)
+        check(launches == [1 + P14_EXECUTES] * 2,
+              f"F1 launches per actor {launches}, not one per execute "
+              f"({1 + P14_EXECUTES})")
+        check(not os.path.exists(chan_dir),
+              f"teardown left the channel directory {chan_dir}")
+        # The same two calls, submitted and fetched task by task.
+        remote_us = time_remote(ranks, "forward", seed, timeout)
+        # Where the step's time goes: the graph without its collective
+        # node (both O's straight to the driver), and a graph whose
+        # outputs are O's norms (the per-step cost of dispatch alone),
+        # beside the same norms by .remote().
+        split = {}
+        for label, method in (("no allreduce", "forward"),
+                              ("norms", "norm")):
+            with InputNode() as inp:
+                graph = MultiOutputNode([getattr(r, method).bind(inp)
+                                         for r in ranks])
+            cdag = graph.experimental_compile(buffer_size=16 << 20,
+                                              max_buffered=2)
+            cdag.execute(seed).get(timeout=timeout)
+            split[label] = time_graph(cdag, seed, timeout)
+            cdag.teardown()
+        split["norms by .remote()"] = time_remote(ranks, "norm", seed,
+                                                  timeout)
+        for r in ranks:
+            rt.kill(r)
+    finally:
+        rt.shutdown()
+    segments = glob.glob(f"/dev/shm/ray_tpu_torch-{info['session']}*")
+    check(not segments, f"store segments left behind: {segments}")
+    deadline = time.monotonic() + 15
+    while (_children() - before) and time.monotonic() < deadline:
+        time.sleep(0.2)
+    check(not (_children() - before),
+          f"worker processes left behind: {sorted(_children() - before)}")
+    print(f"  14: {dag_us:.1f} us per execute() over {P14_EXECUTES} "
+          f"(F1 twice, allgather of two {want.nbytes} B outputs, reduce), "
+          f"{step_bytes} B through the shared-memory channels per step; "
+          f"the same two F1 calls by .remote() and get: {remote_us:.1f} us; "
+          f"F1 launches per actor {launches}; us per step: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in split.items()))
+    return {"dag_us": dag_us, "remote_us": remote_us, "split": split,
+            "step_bytes": step_bytes, "launches": launches}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -3868,6 +4341,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     p12 = phase12(args.seed, p4, p8)
     lap("phase 12")
+    p13 = phase13(args.seed, p2, m2)
+    lap("phase 13")
+    p14 = phase14(args.seed)
+    lap("phase 14")
     prof = p4["profile"]
     print(f"train: {p4['tokens_per_s']:.1f} tokens/s, "
           f"{p4['peak_share']:.2%} of dense bf16 peak, step "
@@ -3960,6 +4437,30 @@ def main() -> int:
           f"per step, resumed losses within {b12['max_rel']:.3e}; two "
           f"workers fsdp=2 losses {c12['losses']} (one process "
           f"{p8['single']}) [{card}]")
+    a13, b13 = p13["a"], p13["b"]
+    print(f"phase 13, Serve: llama3_8b from one num_gpus=1 replica behind "
+          f"the HTTP proxy: cold start {a13['cold_s']:.2f} s; TTFT at the "
+          f"client (4 SSE streams) mean {a13['ttft_mean']:.3f} s, max "
+          f"{a13['ttft_max']:.3f} s, the engine's ttft_s (4 unary) mean "
+          f"{a13['engine_ttft_mean']:.3f} s, max "
+          f"{a13['engine_ttft_max']:.3f} s (phase 2 in process: mean "
+          f"{p2['ttft_s_mean']:.3f} s, max {p2['ttft_s_max']:.3f} s); SSE "
+          f"decode {a13['sse_tokens_per_s']:.1f} tokens/s per stream "
+          f"(phase 2: {p2['decode_tokens_per_s'] / 8:.1f} per stream, "
+          f"{p2['decode_tokens_per_s']:.1f} over 8); replica P1 launches "
+          f"{a13['p1']} = 32 x {a13['steps']} decode steps; mini on 2 "
+          f"half-GPU replicas: P1 launches {b13['launches']}, replacement "
+          f"after a SIGKILL healthy in {b13['replace_s']:.2f} s [{card}]")
+    print(f"phase 14, compiled graph: {p14['dag_us']:.1f} us per execute() "
+          f"(two F1 actors, allreduce of their O on the card), "
+          f"{p14['remote_us']:.1f} us for the same two F1 calls by .remote() "
+          f"and get; {p14['step_bytes']} B through the shared-memory "
+          f"channels per step; us per step, "
+          + ", ".join(f"{k} {v:.1f}" for k, v in p14["split"].items())
+          + f" [{card}]")
+    print(f"phases 13-14 launches (worker processes, not in the kernels "
+          f"line): 13a replica P1 {a13['p1']}; 13b replicas P1 "
+          f"{b13['launches']}; 14 actors F1 {p14['launches']}")
     rows.update({k: tp_rows[k] for k in TP_MAIN_ROWS})
     rows.update(p9["pipeline"]["rows"])
     print(f"run took {time.time() - t_start:.1f} s")

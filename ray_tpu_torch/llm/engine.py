@@ -710,7 +710,13 @@ class LLMEngine:
     def stats(self) -> dict:
         """Serving counters plus live occupancy: request and token
         totals, decode steps, speculative proposal/acceptance,
-        preemptions, chunked-prefill progress, pool and slot use."""
+        preemptions, chunked-prefill progress, pool and slot use, and
+        the process's kernel launches (each wrapper's count: the paged
+        attention kernel and the flash forward), which a caller in
+        another process, such as a serve client, reads here."""
+        from ray_tpu_torch.ops.flash_attention import flash_attention_forward
+        from ray_tpu_torch.ops.paged_attention import paged_attention
+
         with self._lock:
             out = dict(self._stats)
             out["active_requests"] = len(self._active)
@@ -719,6 +725,10 @@ class LLMEngine:
             if self.kv == "paged":
                 out["pages_total"] = self.alloc.num_pages
                 out["pages_free"] = self.alloc.free_pages
+            out["kernel_launches"] = {
+                "paged_attention": paged_attention.launches,
+                "flash_attention_forward": flash_attention_forward.launches,
+            }
             if out["draft_tokens_proposed"]:
                 out["draft_acceptance_rate"] = round(
                     out["draft_tokens_accepted"]

@@ -118,6 +118,17 @@ def test_port_imports_neither_jax_nor_ray_tpu():
                  "restore.py", "remote.py", "erasure.py", "fork.py"):
         assert REPO / "ray_tpu_torch" / "checkpoint" / name in files
     assert REPO / "ray_tpu_torch" / "_native" / "dataloader.py" in files
+    for name in ("__init__.py", "channel.py", "compiled.py", "context.py",
+                 "node.py"):
+        assert REPO / "ray_tpu_torch" / "dag" / name in files
+    for name in ("__init__.py", "api.py", "batching.py", "config.py",
+                 "context.py", "controller.py", "deployment.py",
+                 "grpc_ingress.py", "handle.py", "multiplex.py", "proxy.py",
+                 "replica.py", "routes.py", "rpc_ingress.py", "telemetry.py",
+                 "protos/serve_pb2.py"):
+        assert REPO / "ray_tpu_torch" / "serve" / name in files
+    for name in ("serve_integration.py", "batch.py"):
+        assert REPO / "ray_tpu_torch" / "llm" / name in files
     for name in ("api.py", "placement.py", "exceptions.py", "version.py",
                  "_native/shmstore.py", "_private/config.py",
                  "_private/ids.py", "_private/rpc.py",
