@@ -96,7 +96,8 @@ Phase 8  the sharded path. (a) F1/F2 at a tp rank's local shapes (the
          only: gloo copies every collective through host memory):
          llama3_8b at full width and depth served with mesh {"tp": 2}
          (each rank's pool holds 4 of the 8 KV heads; streams held by
-         stream_check), then the bench preset's first two steps under
+         stream_check), then the first two steps of the bench preset at
+         TWO_RANK_LAYERS of its 24 layers (full width) under
          {"fsdp": 2} and {"tp": 2} with no learning-rate warm-up, held to
          the same steps in one process (losses within TWO_RANK_LOSS_REL,
          gradient norms within TWO_RANK_NORM_REL), with each rank's flash launches and peak
@@ -110,7 +111,8 @@ Phase 9  two ranks on the one card over gloo (correctness only), each
          TWO_RANK_LOSS_REL and each parameter's gradient norm within
          TWO_RANK_NORM_REL, (M + P - 1) x 12 = 60 F1 and F2 launches per
          rank; F1/F2 at the microbatch's shape (B=4) held to their plain
-         versions in fp32 (FLASH_ORACLE_*) and timed; (b) two bench steps
+         versions in fp32 (FLASH_ORACLE_*) and timed; (b)-(c) and (e)
+         at phase 8b's depth (TWO_RANK_LAYERS): (b) two bench steps
          under {"sp": 2} with flash (the sequence gathered over sp);
          (c) under {"tp": 2} with remat "flash_qkv_ffn8", every int8
          value and scale the step's kept op makes (on every
@@ -169,16 +171,17 @@ Phase 12 the Train library on the runtime: (a) phase 7's bench state
          7's torch.save, the background persist's seconds, logical and
          written bytes), again after one step (the dedup ratio), and
          restored into a fresh state bit for bit; (b) TorchTrainer with
-         one GPU worker trains the bench preset 3 steps, checkpointing
+         one GPU worker trains the bench preset 2 steps, checkpointing
          through report(checkpoint=uri), and a second fit resumes from
-         the store for steps 4-6: losses within 2^-8 relative of an
-         uninterrupted 6-step run, 24 F1 + 24 F2 launches per step,
+         the store for steps 3-4: losses within 2^-8 relative of an
+         uninterrupted 4-step run, 24 F1 + 24 F2 launches per step,
          tokens/s through the trainer and the controller's seconds per
          step; (c) TorchTrainer with two half-GPU workers over gloo on
          an fsdp=2 mesh: (a)'s checkpoint restored resharded (each local
-         shard bit for bit its slice of the saved leaf), phase 8b's two
-         fsdp=2 steps (losses and gradient norms within
-         TWO_RANK_LOSS_REL / TWO_RANK_NORM_REL of one process), and the
+         shard bit for bit its slice of the saved leaf), the bench
+         preset's first two steps at full depth under fsdp=2 (losses and
+         gradient norms within TWO_RANK_LOSS_REL / TWO_RANK_NORM_REL of
+         the same steps in one process), and the
          state checkpointed from both ranks and restored whole.
 Phase 13 Serve on the runtime: (a) serve.run(build_llm_deployment(
          "llama3_8b", ...)) with one num_gpus=1 replica, which draws the
@@ -204,12 +207,32 @@ Phase 14 Compiled Graphs: two num_gpus=0.5 actors each run F1 at phase
          on the card (each rank's result a bf16 CUDA tensor, equal on both
          ranks, held to the sum of the same two F1 calls in the driver by
          FLASH_ORACLE_*); one F1 launch per execute in each actor; the
-         microseconds per execute() over 50 beside the same two calls by
+         microseconds per execute() over 20 beside the same two calls by
          .remote() and get, the bytes per step through the shared-memory
          channels, and, for where the step's time goes, the same graph
          without its allreduce and one returning O's norms (beside the
          norms by .remote()); teardown removes the channels, and shutdown
          leaves no store segment and no worker process.
+Phase 15 Ray Data on the runtime: (a) phase 2's 8 prompts (token lists
+         of 20 to 1500 ids) as one block of ray_tpu_torch.data.from_items
+         through map_batches(cls, batch_size=8, compute="actors",
+         concurrency=1), cls the class build_batch_inferencer returns for
+         llama3_8b (phase 13's engine, drawn from the seed in the data
+         actor, which holds no GPU lease) with columns added: the token
+         ids as an int64 CUDA tensor (the block module makes it host
+         numpy), the engine's decode steps, the actor's P1 / F1 launches;
+         8 of 8 streams equal phase 2's, the generated column phase 2's
+         streams decoded, P1 32 per decode step; the actor gone and the
+         card as free as before once take_all() returns; the seconds from
+         map_batches to the rows and decode tokens/s per stream. (b)
+         phase 12b's first 3 batches (48 rows of 2049 ids) as a 4-block
+         from_numpy Dataset into TorchTrainer(datasets={"train": ds}),
+         one GPU worker on the bench preset: get_dataset_shard("train")
+         .iter_batches(batch_size=16), each batch moved to the card in a
+         step_span's data_wait phase; losses within 2^-8 relative of
+         phase 12b's uninterrupted run's first three, 24 F1 + 24 F2
+         launches per step, every row read once in order (a CRC per row);
+         tokens/s beside phase 12b's and data_wait per step.
 Timing   each kernel at the main path's shapes (CUDA events, cold L2):
          its time, its plain version's, its bound (P1 also at the verify
          step's K = 4 and at batch 64, on lines of their own), and for the flash
@@ -1893,16 +1916,30 @@ def rank_serve(seed, tp):
     return out
 
 
+# Depth of the two-rank training runs of phases 8b and 9 (not 9a's
+# pipeline): the bench preset at full width with 6 of its 24 layers. Over
+# gloo a step's time is its host copies, which grow with the depth; each
+# run is held to one process at the same depth.
+TWO_RANK_LAYERS = 6
+
+
+def two_rank_bench():
+    """The bench preset with flash attention at TWO_RANK_LAYERS layers."""
+    from ray_tpu_torch.models.llama import PRESETS
+
+    return dataclasses.replace(PRESETS["bench"], attn_impl="flash",
+                               n_layers=TWO_RANK_LAYERS)
+
+
 def rank_train(seed, sizes, batch=16, seq=2048, steps=2, cfg=None,
                keep_state=False):
     """One rank of the first ``steps`` train steps of ``cfg`` (by default
-    the bench preset with flash attention) under mesh ``sizes`` (axis
+    :func:`two_rank_bench`) under mesh ``sizes`` (axis
     sizes for make_mesh, or a function that builds the mesh; None: one
     process, no mesh): phase 4's weights (from the seed) and batch (the
     whole batch; the step cuts it over the data axes), phase 4's
     optimizer with no warm-up (the first update at the full learning
     rate). ``keep_state`` returns the state too (phase 12c saves it)."""
-    from ray_tpu_torch.models.llama import PRESETS
     from ray_tpu_torch.parallel.mesh import make_mesh
     from ray_tpu_torch.train.step import (
         init_train_state,
@@ -1911,7 +1948,7 @@ def rank_train(seed, sizes, batch=16, seq=2048, steps=2, cfg=None,
     )
 
     if cfg is None:
-        cfg = dataclasses.replace(PRESETS["bench"], attn_impl="flash")
+        cfg = two_rank_bench()
     mesh = (sizes() if callable(sizes)
             else make_mesh(sizes) if sizes else None)
     opt = make_optimizer(warmup=0, total_steps=1000,
@@ -2020,8 +2057,9 @@ def run_two_ranks(work, args, timeout=600):
 def phase8b(seed, p4, p2_outs):
     """Two ranks on the one card over gloo (correctness only: their times
     include host copies of every collective): llama3_8b at full width and
-    depth served with mesh {"tp": 2}, then the bench preset's first two
-    steps under {"fsdp": 2} and {"tp": 2}."""
+    depth served with mesh {"tp": 2}, then the first two steps of the
+    bench preset at TWO_RANK_LAYERS layers under {"fsdp": 2} and
+    {"tp": 2}."""
     from ray_tpu_torch.models.llama import PRESETS, init_params
     from ray_tpu_torch.train import memory
 
@@ -2062,7 +2100,7 @@ def phase8b(seed, p4, p2_outs):
                                                        p2_outs))}
     print(f"  tp=2 streams equal to phase 2's single-process streams: "
           f"{out['same_streams']} of {len(prompts)}")
-    bench = p4["cfg"]
+    bench = two_rank_bench()
     for name in TWO_RANK_MESHES:
         tr = [r[name] for r in ranks]
         check(tr[0]["losses"] == tr[1]["losses"]
@@ -2151,10 +2189,9 @@ def phase9_runs():
     spans both sp ranks (moe_bench's own 1024-token groups would lie in
     one rank's block, the path phase 5 runs); 9e phase 8b's fsdp = 2 run
     on a multislice mesh of two one-rank fake slices."""
-    from ray_tpu_torch.models.llama import PRESETS
     from ray_tpu_torch.models.moe import MOE_PRESETS
 
-    bench = dataclasses.replace(PRESETS["bench"], attn_impl="flash")
+    bench = two_rank_bench()
     moe = dataclasses.replace(MOE_PRESETS["moe_bench"], attn_impl="flash",
                               group_size=2048)
     return {
@@ -2166,12 +2203,20 @@ def phase9_runs():
     }
 
 
-def _pipeline_inputs(seed):
-    """The bench preset (flash, remat "flash_qkv"), its fp32 weights and
-    phase 4's batch, from the seed."""
-    from ray_tpu_torch.models.llama import PRESETS, init_params
+def _pipeline_config():
+    """9a's model: the bench preset at full depth, flash, remat
+    "flash_qkv"."""
+    from ray_tpu_torch.models.llama import PRESETS
 
-    cfg = dataclasses.replace(PRESETS["bench"], attn_impl="flash")
+    return dataclasses.replace(PRESETS["bench"], attn_impl="flash")
+
+
+def _pipeline_inputs(seed):
+    """:func:`_pipeline_config`, its fp32 weights and phase 4's batch,
+    from the seed."""
+    from ray_tpu_torch.models.llama import init_params
+
+    cfg = _pipeline_config()
     params = init_params(cfg, seed, device="cuda")
     rng = np.random.default_rng(seed)
     tokens = torch.from_numpy(
@@ -2445,7 +2490,7 @@ def phase9(seed, p8):
     out = {}
     pipe = [r["pipeline"] for r in ranks]
     n_steps = PIPE_MICRO + PIPE_STAGES - 1
-    per_stage = runs["sp=2"][0].n_layers // PIPE_STAGES
+    per_stage = _pipeline_config().n_layers // PIPE_STAGES
     for i, r in enumerate(pipe):
         text, ok = phase9_readings("pipeline", r, single["pipeline"])
         print(f"  9a pipeline pp=2 M={PIPE_MICRO}, rank {i}: {text}; flash "
@@ -3236,7 +3281,9 @@ def phase11(seed):
 # ----------------------------------------------------------- phase 12
 # The Train library on the card: the bench preset's state through the
 # shard store, then TorchTrainer with one worker and with two.
-P12_STEPS, P12_SAVE_AT = 6, 3
+# Two steps, a save, two resumed steps: the checks need no more, and the
+# whole run stays under 1000 s.
+P12_STEPS, P12_SAVE_AT = 4, 2
 P12_BATCH, P12_SEQ = 16, 2048  # phase 4's batch
 P12_POOL_BYTES = 24 << 30  # the node's shm pool: two saves of 4.446 GB fit
 
@@ -3356,8 +3403,9 @@ def p12_two_worker_loop(config):
     """TorchTrainer's loop for phase 12c, on each of two workers (an fsdp=2
     mesh over the trainer's default gloo group, both on cuda:0): phase
     12a's checkpoint restored onto fsdp=2 DTensors (each local shard bit
-    for bit its slice of the saved leaf); then phase 8b's first two bench
-    steps under fsdp=2 (rank_train); that state saved into the shard store
+    for bit its slice of the saved leaf); then the bench preset's first
+    two steps at full depth under fsdp=2 (rank_train); that state saved
+    into the shard store
     from both ranks (each its windows)."""
     import ray_tpu_torch.train as train
     from ray_tpu_torch import checkpoint as dc
@@ -3376,7 +3424,7 @@ def p12_two_worker_loop(config):
     del state
     gc.collect()
     torch.cuda.empty_cache()
-    run = rank_train(config["seed"], {"fsdp": 2}, keep_state=True)
+    run = rank_train(config["seed"], {"fsdp": 2}, cfg=cfg, keep_state=True)
     saver = dc.AsyncCheckpointer(run=config["run"], rank=ctx.rank,
                                  world=ctx.world_size)
     saver.save(run["state"].step, run.pop("state"))
@@ -3387,23 +3435,24 @@ def p12_two_worker_loop(config):
                   "windows_bytes": saver.last["logical_bytes"]})
 
 
-def phase12(seed, p4, p8):
+def phase12(seed, p4):
     """The Train library on the port's runtime (ray_tpu_torch.init).
     (a) phase 7's bench state (4.446 GB) saved through AsyncCheckpointer:
     the seconds save() stalls the caller (the device-to-host copy) beside
     phase 7's torch.save, the background persist's seconds, logical and
     written bytes; saved again after one step at the full learning rate
     (the dedup ratio); restored into a fresh state, bit for bit. (b)
-    TorchTrainer with one worker (one GPU) trains the bench preset 3
+    TorchTrainer with one worker (one GPU) trains the bench preset 2
     steps, checkpointing through report(checkpoint=uri) into the store; a
-    second fit resumes ("auto") for steps 4-6 from a state bit for bit
+    second fit resumes ("auto") for steps 3-4 from a state bit for bit
     the checkpoint: losses within 2^-8 relative of an uninterrupted
-    6-step run in this process (phase 7's rule), 24 F1 and 24 F2 launches
+    4-step run in this process (phase 7's rule), 24 F1 and 24 F2 launches
     per step; tokens/s through the trainer and the controller's seconds
     per step. (c) TorchTrainer with two half-GPU workers, distributed
     over gloo on an fsdp=2 mesh: (a)'s checkpoint restored resharded
-    (each rank's local shard bit for bit its slice), phase 8b's two
-    fsdp=2 steps (losses and gradient norms within TWO_RANK_LOSS_REL /
+    (each rank's local shard bit for bit its slice), the bench preset's
+    first two steps at full depth under fsdp=2 (losses and gradient
+    norms within TWO_RANK_LOSS_REL /
     TWO_RANK_NORM_REL of one process), the state checkpointed from both
     ranks."""
     import tempfile
@@ -3526,9 +3575,12 @@ def phase12(seed, p4, p8):
               f"step {steps[0][3]} + {steps[0][4]}")
         out["b"] = {"tokens_per_s": tps, "overhead_s": overhead,
                     "max_rel": max(rel), "launches": [r[3:] for r in steps],
-                    "fit_s": [first_s, second_s]}
+                    "fit_s": [first_s, second_s],
+                    "whole": [r[0] for r in whole]}
 
-        # (c) two workers on one card, fsdp=2 over gloo.
+        # (c) two workers on one card, fsdp=2 over gloo, held to the same
+        # two steps in this process.
+        single = rank_train(seed, None, cfg=cfg)
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory(prefix="chip_smoke_p12c_") as tmp:
             res = TorchTrainer(
@@ -3549,7 +3601,7 @@ def phase12(seed, p4, p8):
               f"{m['restore_s']:.2f} s (rank 0), {m['shards']} leaves "
               f"sharded, every local shard bit for bit its slice")
         for i, (loss, norm) in enumerate(zip(m["losses"], m["norms"])):
-            want, want_norm = p8["single"][i], p8["single_norms"][i]
+            want, want_norm = single["losses"][i], single["norms"][i]
             rl, rn = abs(loss / want - 1), abs(norm / want_norm - 1)
             print(f"  12c step {i}: loss {loss:.6f} (one process "
                   f"{want:.6f}, rel {rl:.2e}), grad_norm {norm:.6f} "
@@ -3591,7 +3643,7 @@ def phase12(seed, p4, p8):
               f"restored from its 2 windows; fit "
               f"{time.perf_counter() - t0:.1f} s")
         out["c"] = {"losses": m["losses"], "norms": m["norms"],
-                    "restore_s": m["restore_s"]}
+                    "restore_s": m["restore_s"], "single": single["losses"]}
     finally:
         rt.shutdown()
     return out
@@ -3883,7 +3935,7 @@ def phase13(seed, p2, m2):
 
 
 # ------------------------------------------------------------ phase 14
-P14_EXECUTES = 50
+P14_EXECUTES = 20
 
 
 class FlashRank:
@@ -4036,6 +4088,270 @@ def phase14(seed, timeout=600):
           + ", ".join(f"{k} {v:.1f}" for k, v in split.items()))
     return {"dag_us": dag_us, "remote_us": remote_us, "split": split,
             "step_bytes": step_bytes, "launches": launches}
+
+
+# ------------------------------------------------------------ phase 15
+P15_STEPS = 3  # phase 12b's first three batches, read from a Dataset
+P15_BLOCKS = 4  # blocks of the training Dataset: a batch spans two
+P15_FREE_SLACK = 1 << 30  # bytes below phase 15's first reading
+
+
+def card_free_again(want, timeout=120.0):
+    """Whether the card's free bytes come back to ``want`` (phase 15's
+    first reading, taken when phase 14 has left no worker process) less
+    P15_FREE_SLACK within ``timeout``, and the last reading."""
+    deadline = time.monotonic() + timeout
+    while True:
+        free = torch.cuda.mem_get_info()[0]
+        if free >= want - P15_FREE_SLACK or time.monotonic() > deadline:
+            return free >= want - P15_FREE_SLACK, free
+        time.sleep(0.5)
+
+
+def pid_alive(pid):
+    """``pid`` names a live process (not a zombie)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def p15_inferencer(seed):
+    """Phase 15a's map_batches class: the class build_batch_inferencer
+    returns for llama3_8b (phase 13's engine, drawn from the seed in the
+    data actor), with columns added for the driver to check: the token
+    ids as a [rows, 32] int64 CUDA tensor (the block module turns it into
+    host numpy), the device it came from, the engine's decode steps, the
+    actor process's P1 and F1 launches in this call, the decode tokens/s
+    of its steps (phase 2's measure), and the actor's pid."""
+    from ray_tpu_torch.llm import build_batch_inferencer
+
+    base = build_batch_inferencer(
+        "llama3_8b", engine_kwargs={**P13_ENGINE, "seed": seed},
+        max_tokens=P13_TOKENS)
+
+    class Phase15Inferencer(base):
+        def __call__(self, batch):
+            eng = self.engine
+            outs, walls, emitted = [], [], []
+            generate, step = eng.generate, eng.step
+
+            def recording_generate(prompts, sampling):
+                outs.extend(generate(prompts, sampling))
+                return outs
+
+            def timed_step():
+                before = eng.stats()["tokens_generated"]
+                t0 = time.perf_counter()
+                fins = step()
+                sync()
+                walls.append(time.perf_counter() - t0)
+                emitted.append(eng.stats()["tokens_generated"] - before)
+                return fins
+
+            eng.generate, eng.step = recording_generate, timed_step
+            steps0, (p1_0, f1_0, _) = eng.stats()["decode_steps"], counts()
+            try:
+                batch = super().__call__(batch)
+            finally:
+                del eng.generate, eng.step
+            p1, f1, _ = counts()
+            n = len(outs)
+            tokens = torch.tensor(outs, dtype=torch.int64, device="cuda")
+            batch["tokens"] = tokens
+            batch["tokens_device"] = [str(tokens.device)] * n
+            batch["decode_steps"] = np.full(
+                n, eng.stats()["decode_steps"] - steps0)
+            batch["p1"] = np.full(n, p1 - p1_0)
+            batch["f1"] = np.full(n, f1 - f1_0)
+            # All rows are admitted in the first step; the rest decode.
+            batch["decode_tokens_per_s"] = np.full(
+                n, sum(emitted[1:]) / sum(walls[1:]))
+            batch["pid"] = np.full(n, os.getpid())
+            return batch
+
+    return Phase15Inferencer
+
+
+def phase15a(seed, p2, free0, timeout=900):
+    """llama3_8b batch inference through a data actor pool."""
+    import ray_tpu_torch.data as rd
+    from ray_tpu_torch.llm.tokenizer import ByteTokenizer
+    from ray_tpu_torch.models.llama import PRESETS
+
+    cfg = PRESETS["llama3_8b"]
+    prompts = p2["prompts"]
+    ok, free = card_free_again(free0)
+    check(ok, f"15a: the card has {free} bytes free before the data actor, "
+          f"not {free0}")
+    ds = rd.from_items([{"prompt": p} for p in prompts],
+                       parallelism=1)
+    t0 = time.perf_counter()
+    rows = ds.map_batches(p15_inferencer(seed), batch_size=len(prompts),
+                          compute="actors", concurrency=1).take_all()
+    rows_s = time.perf_counter() - t0
+    check(len(rows) == len(prompts), f"15a: {len(rows)} rows, not "
+          f"{len(prompts)}")
+    check([list(r["prompt"]) for r in rows] == prompts,
+          "15a: the rows' prompts are not phase 2's, in order")
+    streams = [r["tokens"].tolist() for r in rows]
+    check(all(isinstance(r["tokens"], np.ndarray)
+              and r["tokens"].dtype == np.int64
+              and r["tokens_device"].startswith("cuda") for r in rows),
+          "15a: the token column did not arrive as int64 from a CUDA "
+          "tensor")
+    same = sum(a == b for a, b in zip(streams, p2["outs"]))
+    check(same == len(prompts), f"15a: {same} of {len(prompts)} streams "
+          f"equal phase 2's greedy streams")
+    tok = ByteTokenizer()
+    check([r["generated"] for r in rows]
+          == [tok.decode(o) for o in p2["outs"]],
+          "15a: the generated column is not phase 2's streams decoded")
+    steps, p1, f1 = (int(rows[0][k]) for k in ("decode_steps", "p1", "f1"))
+    check(steps > 0 and p1 == cfg.n_layers * steps,
+          f"15a data actor: P1 launched {p1} times for {steps} decode "
+          f"steps x {cfg.n_layers} layers")
+    pid = int(rows[0]["pid"])
+    deadline = time.monotonic() + 60
+    while pid_alive(pid) and time.monotonic() < deadline:
+        time.sleep(0.2)
+    check(not pid_alive(pid), f"15a: the data actor (pid {pid}) outlived "
+          f"the pool's teardown")
+    ok, free1 = card_free_again(free0)
+    check(ok, f"15a: the card has {free1} bytes free after the pool's "
+          f"teardown, not {free0}")
+    per_stream = float(rows[0]["decode_tokens_per_s"]) / len(prompts)
+    print(f"  15a: map_batches(compute=\"actors\", concurrency=1).take_all()"
+          f" to the rows {rows_s:.2f} s (the actor's start and the 16 GB "
+          f"draw included); P1 {p1} launches for {steps} decode steps, F1 "
+          f"{f1}; {same} of 8 streams equal phase 2's; decode "
+          f"{per_stream:.1f} tokens/s per stream (phase 2 "
+          f"{p2['decode_tokens_per_s'] / len(prompts):.1f}); the actor "
+          f"(pid {pid}) gone after take_all(), card free "
+          f"{free0 / 2**30:.2f} GiB before, {free1 / 2**30:.2f} GiB after")
+    return {"rows_s": rows_s, "p1": p1, "f1": f1, "steps": steps,
+            "per_stream": per_stream, "same": same}
+
+
+def p15_train_loop(config):
+    """TorchTrainer's loop for phase 15b: phase 12b's state from the seed,
+    fed from this worker's shard of the Dataset in batches of P12_BATCH
+    rows, each moved to the card inside the step_span's data_wait phase;
+    reports each step's (loss, grad_norm, wall, data_wait s, F1, F2), a
+    CRC of every row read, in order, and the rows past the steps."""
+    import zlib
+
+    import ray_tpu_torch.train as train
+    from ray_tpu_torch.train import jit_train_step
+
+    cfg, opt, state = p12_setup(config["seed"])
+    step = jit_train_step(cfg, opt)
+    it = iter(train.get_dataset_shard("train").iter_batches(
+        batch_size=P12_BATCH))
+    steps, crcs = [], []
+    for _ in range(config["steps"]):
+        with train.step_span(tokens=P12_BATCH * P12_SEQ,
+                             flops_per_token=cfg.flops_per_token(P12_SEQ)
+                             ) as span:
+            with span.phase("data_wait"):
+                rows = next(it)["data"]
+                data = {"tokens": torch.from_numpy(rows).to("cuda")}
+            reset_counts()
+            with span.phase("compute"):
+                t0 = time.perf_counter()
+                state, m = step(state, data)
+                sync()
+                wall = time.perf_counter() - t0
+            _, f1, f2 = counts()
+        crcs += [zlib.crc32(r.tobytes()) for r in rows]
+        steps.append((float(m["loss"]), float(m["grad_norm"]), wall,
+                      span.phases.get("data_wait"), f1, f2))
+    rest = sum(len(b["data"]) for b in it)
+    train.report({"steps": steps, "crcs": crcs, "rest": rest})
+
+
+def phase15b(seed, p12, free0):
+    """A TorchTrainer fed by a Dataset of phase 12b's first batches."""
+    import tempfile
+    import zlib
+
+    import ray_tpu_torch.data as rd
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+
+    cfg, _ = p12_config()
+    ok, free = card_free_again(free0)
+    check(ok, f"15b: the card has {free} bytes free before the trainer, "
+          f"not {free0}")
+    rows = np.concatenate([p12_batch(cfg, seed, i)["tokens"].cpu().numpy()
+                           for i in range(P15_STEPS)])
+    ds = rd.from_numpy(rows, parallelism=P15_BLOCKS)
+    check(ds.num_blocks() == P15_BLOCKS, "15b: the Dataset's blocks")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p15_") as tmp:
+        res = TorchTrainer(
+            p15_train_loop,
+            train_loop_config={"seed": seed, "steps": P15_STEPS},
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True,
+                                         gpus_per_worker=1),
+            run_config=RunConfig(name="phase15b", storage_path=tmp),
+            datasets={"train": ds},
+        ).fit()
+    fit_s = time.perf_counter() - t0
+    check(res.error is None, f"15b fit failed: {res.error!r}")
+    steps, m = res.metrics["steps"], res.metrics
+    check(m["crcs"] == [zlib.crc32(r.tobytes()) for r in rows]
+          and m["rest"] == 0,
+          f"15b: the rows read ({len(m['crcs'])}, {m['rest']} left over) "
+          f"are not the Dataset's {len(rows)} rows, each once, in order")
+    whole = p12["b"]["whole"][:P15_STEPS]
+    rel = [abs(s[0] / w - 1) for s, w in zip(steps, whole)]
+    check(len(steps) == P15_STEPS and all(r <= 2**-8 for r in rel),
+          f"15b: losses {[s[0] for s in steps]} leave phase 12b's "
+          f"uninterrupted {whole} beyond 2^-8 relative")
+    check(all(s[4] == s[5] == cfg.n_layers for s in steps),
+          f"15b: F1/F2 launches per step {[s[4:] for s in steps]}, "
+          f"expected {cfg.n_layers} each")
+    waits = [s[3] for s in steps]
+    check(all(w is not None and w > 0 for w in waits),
+          f"15b: the step_span's data_wait phase read {waits}")
+    walls = [s[2] for s in steps[1:]]
+    tps = P12_BATCH * P12_SEQ * len(walls) / sum(walls)
+    print(f"  15b: TorchTrainer(datasets={{'train': a {P15_BLOCKS}-block "
+          f"Dataset of {len(rows)} rows}}): losses "
+          + ", ".join(f"{s[0]:.6f}" for s in steps)
+          + f" (phase 12b uninterrupted "
+          + ", ".join(f"{w:.6f}" for w in whole)
+          + f"; largest relative difference {max(rel):.3e}, limit 2^-8); "
+          f"{tps:.1f} tokens/s (steps 2-3; phase 12b "
+          f"{p12['b']['tokens_per_s']:.1f}); data_wait per step "
+          + ", ".join(f"{w:.4f}" for w in waits)
+          + f" s; F1 + F2 per step {steps[0][4]} + {steps[0][5]}; every row "
+          f"read once; fit {fit_s:.1f} s")
+    ok, free = card_free_again(free0)
+    check(ok, f"15b: the card has {free} bytes free after the trainer, "
+          f"not {free0}")
+    return {"tokens_per_s": tps, "data_wait_s": waits, "max_rel": max(rel),
+            "launches": [s[4:] for s in steps], "fit_s": fit_s}
+
+
+def phase15(seed, p2, p12):
+    import ray_tpu_torch as rt
+
+    print("phase 15: Ray Data on the card: llama3_8b batch inference "
+          "through a data actor pool, a TorchTrainer fed by a Dataset")
+    rt.init(num_cpus=4)
+    try:
+        check(rt.cluster_resources().get("GPU") == 1.0,
+              "the cluster does not have the card's one GPU")
+        # Phase 14 left no worker process: what is free now is the card
+        # less this process's own use.
+        free0 = torch.cuda.mem_get_info()[0]
+        a = phase15a(seed, p2, free0)
+        b = phase15b(seed, p12, free0)
+    finally:
+        rt.shutdown()
+    return {"a": a, "b": b}
 
 
 def _leaves(tree):
@@ -4339,12 +4655,16 @@ def main() -> int:
     lap("phase 11")
     gc.collect()
     torch.cuda.empty_cache()
-    p12 = phase12(args.seed, p4, p8)
+    p12 = phase12(args.seed, p4)
     lap("phase 12")
     p13 = phase13(args.seed, p2, m2)
     lap("phase 13")
     p14 = phase14(args.seed)
     lap("phase 14")
+    gc.collect()
+    torch.cuda.empty_cache()
+    p15 = phase15(args.seed, p2, p12)
+    lap("phase 15")
     prof = p4["profile"]
     print(f"train: {p4['tokens_per_s']:.1f} tokens/s, "
           f"{p4['peak_share']:.2%} of dense bf16 peak, step "
@@ -4436,7 +4756,7 @@ def main() -> int:
           f"{p4['tokens_per_s']:.1f}), controller {b12['overhead_s']:.2f} s "
           f"per step, resumed losses within {b12['max_rel']:.3e}; two "
           f"workers fsdp=2 losses {c12['losses']} (one process "
-          f"{p8['single']}) [{card}]")
+          f"{c12['single']}) [{card}]")
     a13, b13 = p13["a"], p13["b"]
     print(f"phase 13, Serve: llama3_8b from one num_gpus=1 replica behind "
           f"the HTTP proxy: cold start {a13['cold_s']:.2f} s; TTFT at the "
@@ -4458,9 +4778,22 @@ def main() -> int:
           f"channels per step; us per step, "
           + ", ".join(f"{k} {v:.1f}" for k, v in p14["split"].items())
           + f" [{card}]")
-    print(f"phases 13-14 launches (worker processes, not in the kernels "
+    a15, b15 = p15["a"], p15["b"]
+    print(f"phase 15, Ray Data: llama3_8b batch inference through one data "
+          f"actor, map_batches to the rows {a15['rows_s']:.2f} s, decode "
+          f"{a15['per_stream']:.1f} tokens/s per stream (phase 2: "
+          f"{p2['decode_tokens_per_s'] / 8:.1f}), {a15['same']} of 8 "
+          f"streams equal phase 2's; TorchTrainer fed by a Dataset "
+          f"{b15['tokens_per_s']:.1f} tokens/s (phase 12b "
+          f"{p12['b']['tokens_per_s']:.1f}), data_wait per step "
+          + ", ".join(f"{w:.4f}" for w in b15["data_wait_s"])
+          + f" s, losses within {b15['max_rel']:.3e} of phase 12b's "
+          f"[{card}]")
+    print(f"phases 13-15 launches (worker processes, not in the kernels "
           f"line): 13a replica P1 {a13['p1']}; 13b replicas P1 "
-          f"{b13['launches']}; 14 actors F1 {p14['launches']}")
+          f"{b13['launches']}; 14 actors F1 {p14['launches']}; 15a data "
+          f"actor P1 {a15['p1']} = 32 x {a15['steps']} decode steps, F1 "
+          f"{a15['f1']}; 15b worker F1 + F2 per step {b15['launches']}")
     rows.update({k: tp_rows[k] for k in TP_MAIN_ROWS})
     rows.update(p9["pipeline"]["rows"])
     print(f"run took {time.time() - t_start:.1f} s")

@@ -316,7 +316,7 @@ def preemption_notice() -> dict | None:
 
 
 def get_dataset_shard(name: str = "train"):
-    """This worker's split of a dataset passed to JaxTrainer(datasets=...)
+    """This worker's split of a dataset passed to TorchTrainer(datasets=...)
     (reference: ray.train.get_dataset_shard → DataIterator). Returns a
     ray_tpu_torch.data Dataset over the shard's blocks; iterate with
     .iter_batches(batch_size=...).

@@ -129,6 +129,10 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         assert REPO / "ray_tpu_torch" / "serve" / name in files
     for name in ("serve_integration.py", "batch.py"):
         assert REPO / "ray_tpu_torch" / "llm" / name in files
+    for name in ("__init__.py", "arrow_block.py", "bigquery.py", "block.py",
+                 "dataset.py", "datasource.py", "delta.py", "executor.py",
+                 "plan.py"):
+        assert REPO / "ray_tpu_torch" / "data" / name in files
     for name in ("api.py", "placement.py", "exceptions.py", "version.py",
                  "_native/shmstore.py", "_private/config.py",
                  "_private/ids.py", "_private/rpc.py",

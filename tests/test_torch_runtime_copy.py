@@ -44,6 +44,14 @@ COPIED = (
     "dag/context.py",
     "dag/node.py",
     "collective/flight_recorder.py",
+    "data/__init__.py",
+    "data/arrow_block.py",
+    "data/bigquery.py",
+    "data/dataset.py",
+    "data/datasource.py",
+    "data/delta.py",
+    "data/executor.py",
+    "data/plan.py",
     "experimental/__init__.py",
     "experimental/tensor_transport.py",
     "llm/batch.py",
@@ -190,6 +198,15 @@ PORTED = {
          "_compress", "_dequantize_wire", "_decompress", "_contrib_array",
          "CpuGroup"},
     ),
+    "data/block.py": (
+        "a torch.Tensor column (any device) becomes host numpy through "
+        "detach().cpu().numpy(), bf16 as float32 (numpy has no bf16 "
+        "without ml_dtypes): exact in value, but the dtype is not the JAX "
+        "package's ml_dtypes.bfloat16; ragged rows (token lists of "
+        "several lengths) become an object array, where numpy >= 1.24 "
+        "makes the JAX package's np.asarray raise",
+        {"_as_array"},
+    ),
     "dag/compiled.py": (
         "a collective node reduces torch tensors with torch on the "
         "caller's device, in rank order as the CPU group does; numpy "
@@ -259,7 +276,6 @@ PORTED = {
 MISSING = {
     "ray_tpu_torch._private.lint",
     "ray_tpu_torch.autoscaler",
-    "ray_tpu_torch.data",
     "ray_tpu_torch.train.profile",
 }
 
