@@ -179,10 +179,11 @@ Phase 12 the Train library on the runtime: (a) phase 7's bench state
          step; (c) TorchTrainer with two half-GPU workers over gloo on
          an fsdp=2 mesh: (a)'s checkpoint restored resharded (each local
          shard bit for bit its slice of the saved leaf), the bench
-         preset's first two steps at full depth under fsdp=2 (losses and
-         gradient norms within TWO_RANK_LOSS_REL / TWO_RANK_NORM_REL of
-         the same steps in one process), and the
-         state checkpointed from both ranks and restored whole.
+         preset's first two steps at phase 8b's depth (TWO_RANK_LAYERS)
+         under fsdp=2 (losses and gradient norms within
+         TWO_RANK_LOSS_REL / TWO_RANK_NORM_REL of the same steps in one
+         process), and that state checkpointed from both ranks, every
+         leaf whole in the merged manifest, and restored.
 Phase 13 Serve on the runtime: (a) serve.run(build_llm_deployment(
          "llama3_8b", ...)) with one num_gpus=1 replica, which draws the
          full-size weights from the seed in its own process (max_batch 8,
@@ -233,6 +234,32 @@ Phase 15 Ray Data on the runtime: (a) phase 2's 8 prompts (token lists
          phase 12b's uninterrupted run's first three, 24 F1 + 24 F2
          launches per step, every row read once in order (a CRC per row);
          tokens/s beside phase 12b's and data_wait per step.
+Phase 16 Tune on the runtime: Sweeps of TorchTrainer gangs, each trial
+         one worker on a 0.5 GPU lease (two gangs share the card) training
+         phase 12b's bench step at full width and depth on 12b's batches
+         at its own learning rate, reporting loss every step. (a)
+         LedgerASHA (grace 2, factor 2) over lr 3e-4, 1e-4, 3e-5, 1e-5, 4
+         steps each, admitted with the memory planner's price: every trial
+         TERMINATED, at least one stopped at the rung with fewer than 4
+         steps (a trial at a rung waits for the decision), at most two
+         loops at a time and at least two overlapping, the sampled free GPU
+         reaching 0 and never below, 24 F1 + 24 F2 per step, the lr 3e-4
+         trial's losses within 2^-8 of phase 12b's uninterrupted run, the
+         head's sweep row FINISHED with every trial journaled. (b)
+         LedgerPBT (interval 2, quantile 0.5, lr mutation 1e-4) over lr
+         3e-4 and 3e-6, 6 steps, each trial saving through
+         AsyncCheckpointer at step 2, reporting that step once every
+         trial's save has committed and then waiting until the fork is
+         journaled before it steps on (a relaunch steps once its source
+         has ended or was itself forked from it): one fork, the winner's manifest in the loser's run with
+         no new chunk (dedup ratio 1), the relaunched loser at the
+         mutation, its restored state bit for bit the winner's checkpoint
+         and its first loss within 1e-5 of the winner's at that step, the
+         lineage in sweep_stats, 24 + 24 per step; the card as free after
+         the sweeps as before. Prints each sweep's makespan and
+         chip_idle_fraction, each trial's fit set-up seconds and tokens/s,
+         the saves' stall and persist seconds, the fork's seconds and the
+         relaunch's seconds to its first restored step.
 Timing   each kernel at the main path's shapes (CUDA events, cold L2):
          its time, its plain version's, its bound (P1 also at the verify
          step's K = 4 and at batch 64, on lines of their own), and for the flash
@@ -251,7 +278,10 @@ training step's, "flash_fwd_train_d64" at moe_bench's; the backward twice,
 "flash_bwd" and "flash_bwd_d64"; and the tp=2 shapes phase 8b runs,
 "paged_attention_tp2", "flash_fwd_train_tp2" and "flash_bwd_tp2", with
 both ranks' launches, and the pipeline's microbatch shape phase 9a runs,
-"flash_fwd_train_pp" and "flash_bwd_pp", with both ranks' launches; each
+"flash_fwd_train_pp" and "flash_bwd_pp", with both ranks' launches, and
+phase 16's sweep trials at phase 4's shape, "flash_fwd_train_sweep" and
+"flash_bwd_sweep" (phase 4's timed rows, with every trial worker's
+launches); each
 with its own launches and error; the other phase 8a shapes on a line of
 their own; phase 9b's sp-gathered F1/F2 run at phase 4's shape, whose row
 carries phase 4's launches),
@@ -1916,10 +1946,10 @@ def rank_serve(seed, tp):
     return out
 
 
-# Depth of the two-rank training runs of phases 8b and 9 (not 9a's
-# pipeline): the bench preset at full width with 6 of its 24 layers. Over
-# gloo a step's time is its host copies, which grow with the depth; each
-# run is held to one process at the same depth.
+# Depth of the two-rank training runs of phases 8b, 9 (not 9a's
+# pipeline) and 12c: the bench preset at full width with 6 of its 24
+# layers. Over gloo a step's time is its host copies, which grow with
+# the depth; each run is held to one process at the same depth.
 TWO_RANK_LAYERS = 6
 
 
@@ -3366,6 +3396,20 @@ def p12_mismatched(state, uri):
     return mismatched, shards
 
 
+def p12_leaf_specs(state):
+    """Each leaf's (global shape, dtype name) as a checkpoint manifest
+    records it."""
+    from ray_tpu_torch.checkpoint import manifest
+
+    specs = {}
+    for key, leaf in manifest.tree_flatten_with_keys(state):
+        host = manifest.local_shards(leaf)[0][1]
+        shape = getattr(leaf, "shape", None)
+        specs[key] = (list(host.shape if shape is None else shape),
+                      manifest.dtype_name(host))
+    return specs
+
+
 def p12_worker_loop(config):
     """TorchTrainer's loop for phase 12b: the bench state from the seed,
     resumed from get_checkpoint() when there is one (a ckpt:// URI; the
@@ -3404,9 +3448,8 @@ def p12_two_worker_loop(config):
     mesh over the trainer's default gloo group, both on cuda:0): phase
     12a's checkpoint restored onto fsdp=2 DTensors (each local shard bit
     for bit its slice of the saved leaf); then the bench preset's first
-    two steps at full depth under fsdp=2 (rank_train); that state saved
-    into the shard store
-    from both ranks (each its windows)."""
+    two steps at TWO_RANK_LAYERS under fsdp=2 (rank_train); that state
+    saved into the shard store from both ranks (each its windows)."""
     import ray_tpu_torch.train as train
     from ray_tpu_torch import checkpoint as dc
     from ray_tpu_torch.parallel.mesh import make_mesh
@@ -3424,7 +3467,7 @@ def p12_two_worker_loop(config):
     del state
     gc.collect()
     torch.cuda.empty_cache()
-    run = rank_train(config["seed"], {"fsdp": 2}, cfg=cfg, keep_state=True)
+    run = rank_train(config["seed"], {"fsdp": 2}, keep_state=True)
     saver = dc.AsyncCheckpointer(run=config["run"], rank=ctx.rank,
                                  world=ctx.world_size)
     saver.save(run["state"].step, run.pop("state"))
@@ -3451,10 +3494,9 @@ def phase12(seed, p4):
     per step. (c) TorchTrainer with two half-GPU workers, distributed
     over gloo on an fsdp=2 mesh: (a)'s checkpoint restored resharded
     (each rank's local shard bit for bit its slice), the bench preset's
-    first two steps at full depth under fsdp=2 (losses and gradient
-    norms within TWO_RANK_LOSS_REL /
-    TWO_RANK_NORM_REL of one process), the state checkpointed from both
-    ranks."""
+    first two steps at TWO_RANK_LAYERS under fsdp=2 (losses and gradient
+    norms within TWO_RANK_LOSS_REL / TWO_RANK_NORM_REL of one process),
+    the state checkpointed from both ranks."""
     import tempfile
 
     import ray_tpu_torch as rt
@@ -3580,7 +3622,10 @@ def phase12(seed, p4):
 
         # (c) two workers on one card, fsdp=2 over gloo, held to the same
         # two steps in this process.
-        single = rank_train(seed, None, cfg=cfg)
+        single = rank_train(seed, None, keep_state=True)
+        specs = p12_leaf_specs(single.pop("state"))
+        gc.collect()
+        torch.cuda.empty_cache()
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory(prefix="chip_smoke_p12c_") as tmp:
             res = TorchTrainer(
@@ -3609,9 +3654,10 @@ def phase12(seed, p4):
             check(rl <= TWO_RANK_LOSS_REL and rn <= TWO_RANK_NORM_REL,
                   f"12c step {i}: off one process beyond "
                   f"{TWO_RANK_LOSS_REL} / {TWO_RANK_NORM_REL}")
-        check(m["f1"] == m["f2"] == 2 * cfg.n_layers,
+        layers = two_rank_bench().n_layers
+        check(m["f1"] == m["f2"] == 2 * layers,
               f"12c: rank 0 launched F1 {m['f1']} and F2 {m['f2']} "
-              f"times in two steps, expected {2 * cfg.n_layers} each")
+              f"times in two steps, expected {2 * layers} each")
         # The two ranks' manifests, merged at the head, cover every leaf
         # of the bench state whole (checked from the windows, without
         # pulling the chunks); one sharded leaf and the step restored.
@@ -3623,14 +3669,15 @@ def phase12(seed, p4):
             check(reply.get("ok"), f"12c: no complete checkpoint of {run}")
             return reply["entries"]
 
-        two, one = entries("phase12c"), entries("phase12a")
-        check(two.keys() == one.keys() and all(
-            (e["shape"], e["dtype"]) == (one[k]["shape"], one[k]["dtype"])
+        two = entries("phase12c")
+        check(two.keys() == specs.keys() and all(
+            (e["shape"], e["dtype"]) == specs[k]
             and sum(math.prod(b - a for a, b in sh["index"])
                     if sh.get("index") else math.prod(e["shape"])
                     for sh in e["shards"]) == math.prod(e["shape"])
             for k, e in two.items()),
-            "12c: the two ranks' checkpoint is not the whole bench state")
+            "12c: the two ranks' checkpoint is not the whole state they "
+            "trained")
         emb = ".params['tok_emb']"
         part = dc.restore("phase12c", keys=[emb, ".step"])
         check(int(part[".step"]) == 2 and bool(torch.isfinite(
@@ -4354,6 +4401,435 @@ def phase15(seed, p2, p12):
     return {"a": a, "b": b}
 
 
+# ------------------------------------------------------------ phase 16
+# Tune on the card: Sweeps of TorchTrainer gangs, each one worker on half
+# of the card, so two gangs share it at a time.
+P16_GPUS = 0.5
+P16A_LRS = (3e-4, 1e-4, 3e-5, 1e-5)  # best expected first; 3e-4 is 12b's
+P16B_LRS, P16B_MUTATION = (3e-4, 3e-6), 1e-4
+P16B_STEPS, P16B_SAVE_AT = 6, 2
+P16_POLL_S = 0.2
+P16_DEADLINE_S = 300.0  # longest wait of a trial's loop for the sweep
+
+
+def p16_judged_asha(out, **kw):
+    """LedgerASHA that writes each rung decision to ``out/rung-<trial>-<n>``;
+    a trial reaching a rung waits for it, so every trial is judged on its
+    rung step's loss and a stopped trial stops at the rung."""
+    import os as _os
+
+    from ray_tpu_torch.tune import LedgerASHA
+
+    class JudgedASHA(LedgerASHA):
+        def decide(self, trial_id, steps, value):
+            before = self._judged.get(trial_id, 0)
+            decision = super().decide(trial_id, steps, value)
+            rung = self._judged.get(trial_id, 0)
+            if rung != before:
+                path = f"{out}/rung-{trial_id}-{rung}"
+                with open(path + ".tmp", "w") as f:
+                    f.write(decision)
+                _os.replace(path + ".tmp", path)
+            return decision
+
+    return JudgedASHA(**kw)
+
+
+def p16_sweep_class():
+    """tune.Sweep that also records each trial launch's time and each
+    fork's seconds (the sweep itself is unchanged)."""
+    from ray_tpu_torch.tune import Sweep
+
+    class TimedSweep(Sweep):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.launched, self.fork_s = [], []
+
+        def _launch(self, t):
+            self.launched.append((t.trial_id, time.time()))
+            super()._launch(t)
+
+        def _maybe_fork(self, t):
+            forks, t0 = self.forks, time.perf_counter()
+            super()._maybe_fork(t)
+            if self.forks > forks:
+                self.fork_s.append(time.perf_counter() - t0)
+
+    return TimedSweep
+
+
+def p16_trial_loop(config):
+    """One trial: phase 12b's bench state from the seed with its optimizer
+    at config["lr"] (no warm-up, config["steps"] total), trained on 12b's
+    batches to config["steps"], reporting loss each step. A relaunch after
+    a PBT exploit restores the forked checkpoint, holds it bit for bit
+    against the winner's (p12_mismatched) and steps once the winner has
+    ended (or was itself relaunched from this trial). With config["save_at"] the state is saved through
+    AsyncCheckpointer at that step, the step is reported once the save has
+    committed and every trial of the sweep has committed it, and the loop
+    then waits until the fork is journaled before it goes on. At each of
+    config["rungs"] it waits for the ASHA decision, and on STOP for the
+    stop. Each step's record (loss, wall, F1, F2, end time; the save's
+    stall and persist) goes to out/<trial>.jsonl."""
+    import ray_tpu_torch.train as train
+    from ray_tpu_torch import checkpoint as dc
+    from ray_tpu_torch.train import (
+        init_train_state,
+        jit_train_step,
+        make_optimizer,
+    )
+    from ray_tpu_torch.util import state as rstate
+
+    loop_start = time.time()
+    ctx = train.get_context()
+    seed, out, deadline = config["seed"], config["out"], config["deadline_s"]
+
+    def wait_for(pred, what):
+        end = time.monotonic() + deadline
+        while not pred():
+            if time.monotonic() > end:
+                raise TimeoutError(f"trial {ctx.trial_id} waited {deadline} "
+                                   f"s for {what}")
+            time.sleep(0.1)
+
+    def sweep_row():
+        return rstate.sweep_stats(sweep_id=ctx.sweep_id)["sweeps"][
+            ctx.sweep_id]
+
+    def committed(step):
+        return all(dc.latest_step(t["job"]) == step
+                   for t in sweep_row()["trials"].values())
+
+    def decision(rung):
+        path = f"{out}/rung-{ctx.trial_id}-{rung}"
+        if not os.path.exists(path):
+            return None
+        with open(path) as f:
+            return f.read()
+
+    cfg, _ = p12_config()
+    opt = make_optimizer(lr=config["lr"], warmup=0,
+                         total_steps=config["steps"],
+                         mu_dtype=torch.bfloat16)
+    state = init_train_state(cfg, opt, seed=seed, device="cuda")
+    uri = train.get_checkpoint()
+    head = {"loop_start": loop_start, "lr": config["lr"], "restored": uri}
+    if uri is not None:
+        t0 = time.perf_counter()
+        state = dc.restore_uri(uri, target=state)
+        sync()
+        head["restore_s"] = time.perf_counter() - t0
+        source = sweep_row()["trials"][ctx.trial_id]["forked_from"]
+        fork_step = dc.parse_uri(uri)[1]
+        head["source_uri"] = f"ckpt://{ctx.sweep_id}/{source}/{fork_step}"
+        head["source"] = source
+        head["mismatched"], _ = p12_mismatched(state, head["source_uri"])
+        # Step once the source has ended (or was itself relaunched from
+        # this trial), so that its later steps meet no relaunched peer.
+        wait_for(lambda: sweep_row()["trials"][source]["state"]
+                 == "TERMINATED" or sweep_row()["trials"][source].get(
+                     "forked_from") == ctx.trial_id,
+                 "the fork's source to end")
+    path = os.path.join(out, f"{ctx.trial_id}.jsonl")
+    with open(path, "a") as f:
+        f.write(json.dumps(head) + "\n")
+    saver = dc.AsyncCheckpointer() if config.get("save_at") else None
+    step = jit_train_step(cfg, opt)
+    while state.step < config["steps"]:
+        i = int(state.step)
+        data = p12_batch(cfg, seed, i)
+        reset_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, data)
+        sync()
+        rec = {"step": i, "loss": float(m["loss"]),
+               "wall": time.perf_counter() - t0}
+        _, rec["f1"], rec["f2"] = counts()
+        rec["end"] = time.time()
+        if saver is not None and state.step == config["save_at"]:
+            t0 = time.perf_counter()
+            saver.save(state.step, state)
+            rec["stall_s"] = time.perf_counter() - t0
+            saver.wait()
+            rec["persist_s"] = saver.last["persist_s"]
+            rec["commit_s"] = time.perf_counter() - t0
+            wait_for(lambda: committed(config["save_at"]),
+                     "every trial's checkpoint")
+        with open(path, "a") as f:
+            f.write(json.dumps(rec) + "\n")
+        train.report({"loss": rec["loss"]})
+        if saver is not None and state.step == config["save_at"]:
+            wait_for(lambda: sweep_row().get("forks", 0) >= 1, "the fork")
+        if state.step in config.get("rungs", ()):
+            rung = int(state.step)
+            wait_for(lambda: decision(rung) is not None,
+                     f"the decision at rung {rung}")
+            if decision(rung) == "STOP":
+                wait_for(lambda: False, "the stop")
+
+
+def p16_records(out, trial_id):
+    """A trial's records: one list per launch, each a header (its start,
+    lr, what it restored) and its steps."""
+    launches = []
+    with open(os.path.join(out, f"{trial_id}.jsonl")) as f:
+        for line in f:
+            rec = json.loads(line)
+            if "loop_start" in rec:
+                launches.append({**rec, "steps": []})
+            else:
+                launches[-1]["steps"].append(rec)
+    return launches
+
+
+def p16_run(name, space, out, storage, **cfg_kw):
+    """One Sweep of p16_trial_loop over ``space``; returns the sweep, its
+    result, the journal's row and each trial's records."""
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.util import state as rstate
+
+    sweep = p16_sweep_class()(
+        p16_trial_loop, {**space, "out": out, "deadline_s": P16_DEADLINE_S},
+        sweep_id=name, storage_path=storage,
+        config=tune.SweepConfig(num_samples=1, workers_per_trial=1,
+                                gpus_per_worker=P16_GPUS, max_failures=0,
+                                poll_s=P16_POLL_S, **cfg_kw))
+    res = sweep.run()
+    check(all(t.state == "TERMINATED" and t.error is None
+              for t in res.trials),
+          f"16 {name}: trials " + ", ".join(
+              f"{t.trial_id} {t.state} {t.error}" for t in res.trials))
+    row = rstate.sweep_stats(sweep_id=name)["sweeps"][name]
+    check(row["state"] == "FINISHED" and len(row["trials"]) == len(res.trials)
+          and all(r["state"] == "TERMINATED" for r in row["trials"].values()),
+          f"16 {name}: the head's sweep row {row.get('state')} with "
+          f"{len(row.get('trials', {}))} trials journaled")
+    recs = {t.trial_id: p16_records(out, t.trial_id) for t in res.trials}
+    return sweep, res, row, recs
+
+
+def p16_launch_checks(name, recs, cfg):
+    """Every step of every trial launched 24 F1 and 24 F2; returns all
+    steps' (F1, F2)."""
+    per = [(s["f1"], s["f2"]) for launches in recs.values()
+           for launch in launches for s in launch["steps"]]
+    check(per and all(p == (cfg.n_layers, cfg.n_layers) for p in per),
+          f"16 {name}: F1/F2 launches per step {per}, expected "
+          f"{cfg.n_layers} each")
+    return per
+
+
+def p16_readings(name, sweep, res, recs):
+    """Per-trial fit set-up seconds (launch to the loop's start) and
+    tokens/s (steps after each launch's first), the sweep's makespan and
+    idle share; printed."""
+    starts = {}
+    for tid, ts in sweep.launched:
+        starts.setdefault(tid, []).append(ts)
+    card = card_line()
+    out = {"makespan_s": res.stats["makespan_s"],
+           "idle": res.stats["chip_idle_fraction"], "trials": {}}
+    for tid, launches in recs.items():
+        for n, launch in enumerate(launches):
+            walls = [s["wall"] for s in launch["steps"][1:]]
+            tps = (P12_BATCH * P12_SEQ * len(walls) / sum(walls)
+                   if walls else None)
+            setup = launch["loop_start"] - starts[tid][n]
+            out["trials"].setdefault(tid, []).append(
+                {"setup_s": setup, "tokens_per_s": tps,
+                 "steps": len(launch["steps"])})
+            print(f"  16{name} {tid} launch {n} (lr {launch['lr']:g}): fit "
+                  f"set-up {setup:.2f} s, {len(launch['steps'])} steps, "
+                  + (f"{tps:.1f} tokens/s" if tps else "no timed step")
+                  + f" [{card}]")
+    print(f"  16{name}: makespan {out['makespan_s']:.2f} s, "
+          f"chip_idle_fraction {out['idle']} [{card}]")
+    return out
+
+
+def phase16a(seed, p12, plan_kwargs, work):
+    """LedgerASHA over 4 learning rates, two gangs at a time."""
+    cfg, _ = p12_config()
+    out = os.path.join(work, "asha")
+    os.makedirs(out)
+    sweep, res, row, recs = p16_run(
+        "phase16a", {"lr": {"grid_search": list(P16A_LRS)},
+                     "steps": P12_STEPS, "seed": seed, "rungs": [2, 4]},
+        out, os.path.join(work, "results"), plan_kwargs=plan_kwargs,
+        scheduler=p16_judged_asha(out, metric="loss", mode="min",
+                                  grace_period=2, reduction_factor=2))
+    stopped = sorted(t for t, r in row["trials"].items()
+                     if r.get("stop_reason") == "rung")
+    ran = {t: len(recs[t][0]["steps"]) for t in recs}
+    for t in res.trials:
+        print(f"  16a {t.trial_id} lr {t.config['lr']:g}: ledger loss "
+              f"{t.ledger.get('loss')}, steps {t.ledger.get('steps')}, "
+              + ("stopped at the rung" if t.trial_id in stopped
+                 else "ran to the end")
+              + ": losses " + ", ".join(
+                  f"{s['loss']:.6f}" for s in recs[t.trial_id][0]["steps"]))
+    check(stopped and all(ran[t] < P12_STEPS for t in stopped),
+          f"16a: ASHA stopped {stopped}, steps run {ran}")
+    spans = [(launch["loop_start"], launch["steps"][-1]["end"])
+             for launches in recs.values() for launch in launches]
+    check(all(sum(1 for a, b in spans if a <= s < b) <= 2
+              for s, _ in spans)
+          and any(a < s < b for s, _ in spans for a, b in spans),
+          f"16a: the trials' loops ran {sorted(spans)}: not two at a time")
+    frees = [f for _ts, f, total in sweep.utilization if total > 0]
+    check(frees and min(frees) == 0.0 and all(f >= 0 for f in frees),
+          f"16a: sampled free GPU {frees}")
+    per = p16_launch_checks("a", recs, cfg)
+    first = next(t for t in res.trials if t.config["lr"] == P16A_LRS[0])
+    losses = [s["loss"] for s in recs[first.trial_id][0]["steps"]]
+    whole = p12["b"]["whole"][:len(losses)]
+    rel = [abs(a / b - 1) for a, b in zip(losses, whole)]
+    print(f"  16a lr {P16A_LRS[0]:g} (phase 12b's config): losses "
+          + ", ".join(f"{x:.6f}" for x in losses) + " (12b uninterrupted "
+          + ", ".join(f"{x:.6f}" for x in whole)
+          + f"; largest relative difference {max(rel):.3e}, limit 2^-8)")
+    check(len(losses) >= 2 and max(rel) <= 2**-8,
+          "16a: the lr 3e-4 trial's losses leave phase 12b's")
+    read = p16_readings("a", sweep, res, recs)
+    return {**read, "stopped": stopped, "ran": ran, "max_rel": max(rel),
+            "launches": per, "f1": sum(p[0] for p in per),
+            "f2": sum(p[1] for p in per)}
+
+
+def phase16b(seed, work):
+    """LedgerPBT over 2 learning rates: an exploit forks the winner's
+    shard-store checkpoint into the loser's run."""
+    from ray_tpu_torch import checkpoint as dc
+    from ray_tpu_torch import tune
+
+    cfg, _ = p12_config()
+    out = os.path.join(work, "pbt")
+    os.makedirs(out)
+    sweep, res, row, recs = p16_run(
+        "phase16b", {"lr": {"grid_search": list(P16B_LRS)},
+                     "steps": P16B_STEPS, "seed": seed,
+                     "save_at": P16B_SAVE_AT},
+        out, os.path.join(work, "results"),
+        pbt=tune.LedgerPBT(metric="loss", mode="min",
+                           perturbation_interval=P16B_SAVE_AT,
+                           hyperparam_mutations={"lr": [P16B_MUTATION]},
+                           quantile_fraction=0.5, seed=seed))
+    check(res.stats["forks"] >= 1, f"16b: {res.stats['forks']} forks")
+    # Every relaunch, in order: (trial, launch record).
+    relaunches = sorted(((tid, launch) for tid, launches in recs.items()
+                         for launch in launches[1:]),
+                        key=lambda r: r[1]["loop_start"])
+    check(len(relaunches) == res.stats["forks"],
+          f"16b: {len(relaunches)} relaunches for {res.stats['forks']} forks")
+    loser_id, first = relaunches[0]
+    winner_id = first["source"]
+    jrec = row["trials"][loser_id]
+    check(jrec.get("forked_from") is not None
+          and jrec.get("fork_step") == P16B_SAVE_AT,
+          f"16b: the journal's lineage {jrec.get('forked_from')} at "
+          f"{jrec.get('fork_step')}")
+    share = dc.fork_shares_chunks(f"phase16b/{winner_id}",
+                                  f"phase16b/{loser_id}", P16B_SAVE_AT)
+    check(share["new_chunks"] == 0 and share["dedup_ratio"] == 1.0
+          and share["dst_chunks"] > 0, f"16b: the fork's chunks {share}")
+    won = {s["step"]: s["loss"] for s in recs[winner_id][0]["steps"]}
+    want = won.get(P16B_SAVE_AT)
+    diffs = []
+    for tid, launch in relaunches:
+        check(launch["restored"] == f"ckpt://phase16b/{tid}/{P16B_SAVE_AT}"
+              and launch["lr"] == P16B_MUTATION
+              and launch["mismatched"] == 0,
+              f"16b: {tid} relaunched from {launch['restored']} at lr "
+              f"{launch['lr']}, {launch['mismatched']} leaves differ from "
+              f"{launch['source_uri']}")
+        check(launch["steps"], f"16b: {tid}'s relaunch ran no step")
+        got = launch["steps"][0]
+        check(got["step"] == P16B_SAVE_AT and want is not None,
+              f"16b: {tid}'s relaunch began at step {got['step']}; the "
+              f"winner's loss there {want}")
+        diffs.append(abs(got["loss"] / want - 1))
+    check(max(diffs) <= 1e-5, f"16b: the first losses after the restores "
+          f"leave the winner's {want} by {diffs} relative (limit 1e-5)")
+    for tid, launches in recs.items():
+        check([s["step"] for s in launches[-1]["steps"]][-1:]
+              == [P16B_STEPS - 1],
+              f"16b: {tid}'s last launch ended at "
+              f"{[s['step'] for s in launches[-1]['steps']]}")
+    check(res.trials[[t.trial_id for t in res.trials].index(loser_id)]
+          .config["lr"] == P16B_MUTATION, "16b: the loser's final lr")
+    print(f"  16b: {loser_id} (lr {recs[loser_id][0]['lr']:g}) exploited "
+          f"by {winner_id} (lr {recs[winner_id][0]['lr']:g}); "
+          f"{res.stats['forks']} fork(s); the first of step {P16B_SAVE_AT}:"
+          f" {share['dst_chunks']} chunks, {share['new_chunks']} new, dedup "
+          f"ratio {share['dedup_ratio']}; relaunched at lr "
+          f"{first['lr']:g}, restored state bit for bit the winner's "
+          f"checkpoint; first loss after the restore "
+          f"{first['steps'][0]['loss']:.6f} at step {P16B_SAVE_AT}, the "
+          f"winner's {want:.6f} (relative difference {diffs[0]:.3e}, "
+          f"limit 1e-5)")
+    per = p16_launch_checks("b", recs, cfg)
+    card = card_line()
+    saves = [s for launches in recs.values() for s in launches[0]["steps"]
+             if "stall_s" in s]
+    for s in saves:
+        print(f"  16b save at step {P16B_SAVE_AT}: save() stalled the loop "
+              f"{s['stall_s']:.3f} s, persist {s['persist_s']:.2f} s, "
+              f"committed {s['commit_s']:.2f} s after save() [{card}]")
+    relaunched = [ts for tid, ts in sweep.launched if tid == loser_id][1]
+    to_step = first["steps"][0]["end"] - relaunched
+    print(f"  16b: the fork took {sweep.fork_s[0]:.3f} s; relaunch to the "
+          f"first restored step {to_step:.2f} s (restore "
+          f"{first['restore_s']:.2f} s) [{card}]")
+    read = p16_readings("b", sweep, res, recs)
+    return {**read, "forks": res.stats["forks"], "share": share,
+            "diff": max(diffs), "fork_s": sweep.fork_s[0],
+            "to_step_s": to_step, "restore_s": first["restore_s"],
+            "saves": [(s["stall_s"], s["persist_s"]) for s in saves],
+            "launches": per, "f1": sum(p[0] for p in per),
+            "f2": sum(p[1] for p in per)}
+
+
+def phase16(seed, p12):
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.train import admission
+
+    print("phase 16: Tune on the card: Sweeps of TorchTrainer gangs on "
+          "half-GPU leases (LedgerASHA, then a checkpoint-forked LedgerPBT "
+          "exploit)")
+    cfg, _ = p12_config()
+    rt.init(num_cpus=8, _system_config={"POOL_BYTES": P12_POOL_BYTES})
+    try:
+        check(rt.cluster_resources().get("GPU") == 1.0,
+              "the cluster does not have the card's one GPU")
+        free0 = torch.cuda.mem_get_info()[0]
+        plan_kwargs = {"cfg": cfg, "batch": P12_BATCH, "seq": P12_SEQ,
+                       "mu_dtype": "bfloat16"}
+        ticket = admission.admit_gang(1, P16_GPUS, plan_kwargs=plan_kwargs)
+        plan = ticket.plan
+        print(f"  16 admission ticket for one trial: {ticket.reason}; plan "
+              f"{plan.total_gb:.2f} GiB of {plan.usable_bytes / 2**30:.2f} "
+              f"GiB usable (remat {cfg.remat} priced as the planner prices "
+              f"it), fits {plan.fits}; {ticket.free_chips:g} of "
+              f"{ticket.total_chips:g} GPU free")
+        if not plan.fits:
+            print("  16: the planner rejects the trial's config: the sweeps "
+                  "run without plan_kwargs")
+            plan_kwargs = None
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_p16_") as work:
+            a = phase16a(seed, p12, plan_kwargs, work)
+            b = phase16b(seed, work)
+        ok, free1 = card_free_again(free0)
+        check(ok, f"16: the card has {free1} bytes free after the sweeps, "
+              f"not {free0}")
+        print(f"  16: card free {free0 / 2**30:.2f} GiB before the sweeps, "
+              f"{free1 / 2**30:.2f} GiB after")
+    finally:
+        rt.shutdown()
+    return {"a": a, "b": b}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -4665,6 +5141,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     p15 = phase15(args.seed, p2, p12)
     lap("phase 15")
+    gc.collect()
+    torch.cuda.empty_cache()
+    p16 = phase16(args.seed, p12)
+    lap("phase 16")
     prof = p4["profile"]
     print(f"train: {p4['tokens_per_s']:.1f} tokens/s, "
           f"{p4['peak_share']:.2%} of dense bf16 peak, step "
@@ -4794,8 +5274,31 @@ def main() -> int:
           f"{b13['launches']}; 14 actors F1 {p14['launches']}; 15a data "
           f"actor P1 {a15['p1']} = 32 x {a15['steps']} decode steps, F1 "
           f"{a15['f1']}; 15b worker F1 + F2 per step {b15['launches']}")
+    a16, b16 = p16["a"], p16["b"]
+    print(f"phase 16, Tune: 16a LedgerASHA over {len(P16A_LRS)} trials on "
+          f"half-GPU leases, stopped at the rung {a16['stopped']}, steps run "
+          f"{a16['ran']}, makespan {a16['makespan_s']:.2f} s, "
+          f"chip_idle_fraction {a16['idle']}, lr 3e-4 losses within "
+          f"{a16['max_rel']:.3e} of phase 12b's; 16b LedgerPBT: "
+          f"{b16['forks']} fork of {b16['share']['dst_chunks']} chunks, "
+          f"{b16['share']['new_chunks']} new, in {b16['fork_s']:.3f} s; "
+          f"saves (stall s, persist s) {b16['saves']}; relaunch to the "
+          f"first restored step {b16['to_step_s']:.2f} s, first loss within "
+          f"{b16['diff']:.3e} of the winner's; makespan "
+          f"{b16['makespan_s']:.2f} s, chip_idle_fraction {b16['idle']} "
+          f"[{card}]")
+    print(f"phase 16 launches (trial workers): F1 + F2 per step 16a "
+          f"{sorted(set(a16['launches']))} over {len(a16['launches'])} "
+          f"steps, 16b {sorted(set(b16['launches']))} over "
+          f"{len(b16['launches'])} steps (kernels line: flash_fwd_train_sweep"
+          f" {a16['f1'] + b16['f1']}, flash_bwd_sweep "
+          f"{a16['f2'] + b16['f2']})")
     rows.update({k: tp_rows[k] for k in TP_MAIN_ROWS})
     rows.update(p9["pipeline"]["rows"])
+    # Phase 16's trials run the bench step at phase 4's shape: the same
+    # timed rows, with the sweep's launches.
+    rows["flash_fwd_train_sweep"] = dict(rows["flash_fwd_train"])
+    rows["flash_bwd_sweep"] = dict(rows["flash_bwd"])
     print(f"run took {time.time() - t_start:.1f} s")
     # One row per kernel and main-path shape: the forward kernel runs in
     # the dense prefill (phase 3) and in training (phase 4).
@@ -4813,7 +5316,9 @@ def main() -> int:
                 "flash_fwd_train_tp2": p8["tp=2"]["f1"],
                 "flash_bwd_tp2": p8["tp=2"]["f2"],
                 "flash_fwd_train_pp": p9["pipeline"]["f1"],
-                "flash_bwd_pp": p9["pipeline"]["f2"]}
+                "flash_bwd_pp": p9["pipeline"]["f2"],
+                "flash_fwd_train_sweep": a16["f1"] + b16["f1"],
+                "flash_bwd_sweep": a16["f2"] + b16["f2"]}
     fwd = ("ray_tpu_torch/csrc/flash_fwd.cu",
            "ray_tpu/ops/pallas/flash_attention.py:48")
     paged = ("ray_tpu_torch/csrc/paged_attention.cu",
@@ -4836,6 +5341,8 @@ def main() -> int:
     meta["flash_bwd_tp2"] = meta["flash_bwd"]
     meta["flash_fwd_train_pp"] = fwd
     meta["flash_bwd_pp"] = meta["flash_bwd"]
+    meta["flash_fwd_train_sweep"] = fwd
+    meta["flash_bwd_sweep"] = meta["flash_bwd"]
     check(rows.keys() == meta.keys(),
           f"timed rows {sorted(rows)} are not the kernels {sorted(meta)}")
     kernels = [

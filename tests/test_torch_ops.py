@@ -133,6 +133,10 @@ def test_port_imports_neither_jax_nor_ray_tpu():
                  "dataset.py", "datasource.py", "delta.py", "executor.py",
                  "plan.py"):
         assert REPO / "ray_tpu_torch" / "data" / name in files
+    for name in ("__init__.py", "bohb_search.py", "callbacks.py",
+                 "hyperopt_search.py", "optuna_search.py", "schedulers.py",
+                 "search.py", "sweep.py", "trial.py", "tuner.py"):
+        assert REPO / "ray_tpu_torch" / "tune" / name in files
     for name in ("api.py", "placement.py", "exceptions.py", "version.py",
                  "_native/shmstore.py", "_private/config.py",
                  "_private/ids.py", "_private/rpc.py",
@@ -147,7 +151,7 @@ def test_port_imports_neither_jax_nor_ray_tpu():
                  "runtime/memory.py", "runtime/node.py",
                  "runtime/object_store.py", "runtime/runtime_env.py",
                  "runtime/transfer.py", "runtime/worker_main.py",
-                 "util/metrics.py", "util/rpdb.py",
+                 "util/metrics.py", "util/rpdb.py", "util/state.py",
                  "util/scheduling_strategies.py", "util/tracing.py",
                  "collective/algo.py", "collective/bucketer.py",
                  "collective/codec.py", "collective/flight_recorder.py",

@@ -83,10 +83,20 @@ COPIED = (
     "serve/rpc_ingress.py",
     "serve/telemetry.py",
     "train/session.py",
+    "tune/__init__.py",
+    "tune/bohb_search.py",
+    "tune/callbacks.py",
+    "tune/hyperopt_search.py",
+    "tune/optuna_search.py",
+    "tune/schedulers.py",
+    "tune/search.py",
+    "tune/trial.py",
+    "tune/tuner.py",
     "util/__init__.py",
     "util/metrics.py",
     "util/rpdb.py",
     "util/scheduling_strategies.py",
+    "util/state.py",
 )
 
 # module -> (reason, top-level names that may differ). A name is a def or
@@ -256,6 +266,13 @@ PORTED = {
         {"import os", "import tempfile", "ScalingConfig", "RunConfig",
          "_init_default_process_group", "TrainWorker", "JaxTrainer",
          "TorchTrainer"},
+    ),
+    "tune/sweep.py": (
+        "a trial gang leases GPUs: SweepConfig.gpus_per_worker in place "
+        "of chips_per_worker, the trainer a TorchTrainer with "
+        "ScalingConfig(use_gpu, gpus_per_worker), and admission counts "
+        "the GPU resource where the source counts TPU",
+        {"SweepConfig", "Sweep._make_trainer", "Sweep._admit_and_launch"},
     ),
     "util/tracing.py": (
         "jax_profile becomes torch_profile (torch.profiler, Chrome trace)",

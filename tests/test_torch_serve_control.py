@@ -10,8 +10,8 @@ of a hang.
 
 The JAX package's serve control tests (tests/test_serve_control.py)
 on the port's runtime and serve package, every case kept. The drain
-case reads the head's serve ledger through the head directly:
-util/state.py is not ported yet.
+case reads the head's serve ledger through util/state.py's serve_stats,
+as the JAX package's does.
 """
 
 import asyncio
@@ -28,11 +28,6 @@ from ray_tpu_torch.serve.controller import (
     pick_spread_slice,
 )
 from ray_tpu_torch.serve.handle import _Breaker
-
-
-def _head_call(method, **kw):
-    rt = ray_tpu_torch.api._runtime
-    return rt.run(rt.core.head.call(method, **kw))
 
 
 # ---------------------------------------------------- breaker transitions
@@ -295,13 +290,14 @@ def test_scale_down_drain_zero_dropped_requests(serve_cluster):
         time.sleep(0.25)
     st = serve.status()["zdrop_app"]["slow"]
     assert st["replicas"] == 1 and st["draining"] == 0
-    # The controller reported the new target to the head ledger (read
-    # from the head: util/state.py is not ported yet).
+    # The controller reported the new target to the head ledger.
+    from ray_tpu_torch.util import state
+
     deadline = time.monotonic() + 15
     asc = None
     while time.monotonic() < deadline:
         asc = (
-            _head_call("serve_stats")["deployments"]
+            state.serve_stats()["deployments"]
             .get("zdrop_app/slow", {})
             .get("autoscale")
         )
