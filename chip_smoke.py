@@ -64,10 +64,15 @@ Phase 4  frees the serving model and trains the bench preset (24 layers,
          eight remat modes on the same weights (time of the second of two
          calls, peak memory, launches per F1_PER_LAYER: 48 forward under
          "full", "attn" and "dots"; loss against flash_qkv's); profiles
-         one step (every flash_fwd* kernel counts as F1, every flash_bwd*
-         kernel as F2; either at 0 ms fails), and holds one batch-2
-         gradient step through the kernels against one through the plain
-         dense attention, in bf16 and fp32.
+         one step, its kernels classed by _private/kernel_profile.py
+         (every flash_fwd* kernel counts as F1, every flash_bwd* kernel
+         as F2; either at 0 ms fails); captures 3 steps through
+         train/profile.py's profile_train_step on the same state (its five
+         shares sum to 1 within 10%, mfu above 0, compute_floor at most
+         the step's wall) and prints the largest 8 kernels of its
+         elementwise class; and holds one batch-2 gradient step through
+         the kernels against one through the plain dense attention, in
+         bf16 and fp32.
 Phase 5  trains moe_bench at full width and depth (6 layers, d 1024, 16 / 8
          heads of 64, 4 experts, top-2; remat "full") on 16 x 2049
          tokens: 12 forward + 6 backward flash launches per step, a
@@ -241,11 +246,18 @@ Phase 16 Tune on the runtime: Sweeps of TorchTrainer gangs, each trial
          LedgerASHA (grace 2, factor 2) over lr 3e-4, 1e-4, 3e-5, 1e-5, 4
          steps each, admitted with the memory planner's price: every trial
          TERMINATED, at least one stopped at the rung with fewer than 4
-         steps (a trial at a rung waits for the decision), at most two
+         steps and every stopped one at a rung (2 or 4; a trial at a rung
+         waits for the decision), at most two
          loops at a time and at least two overlapping, the sampled free GPU
          reaching 0 and never below, 24 F1 + 24 F2 per step, the lr 3e-4
          trial's losses within 2^-8 of phase 12b's uninterrupted run, the
-         head's sweep row FINISHED with every trial journaled. (b)
+         head's sweep row FINISHED with every trial journaled; once a
+         trial has reported step 1 to the head's train ledger this
+         process calls util.state.profile_capture(steps=1), and at least one
+         profile:step span reaches the head with the reference's keys
+         and a measured matmul time above 0 (the trial loop calls
+         train/profile.py's step_hook after each step: its report()
+         steps carry the loss the ledger ranks). (b)
          LedgerPBT (interval 2, quantile 0.5, lr mutation 1e-4) over lr
          3e-4 and 3e-6, 6 steps, each trial saving through
          AsyncCheckpointer at step 2, reporting that step once every
@@ -260,6 +272,19 @@ Phase 16 Tune on the runtime: Sweeps of TorchTrainer gangs, each trial
          chip_idle_fraction, each trial's fit set-up seconds and tokens/s,
          the saves' stall and persist seconds, the fork's seconds and the
          relaunch's seconds to its first restored step.
+Phase 17 RL on the runtime, the learner on the card in this process and 2
+         env-runner actors on the CPU: (a) PPO on the chain (the JAX
+         package's tests/test_rl.py configuration), 15 iterations: mean
+         return above 0.5, the learner's params on cuda, the greedy action
+         at the start state 1, and the first learner update done again on
+         the CPU through the port on the same batch and weights (loss and
+         grad_norm within 1e-5 relative, every param within 1e-5 of its
+         leaf's largest magnitude); (b) APPO on the chain (its
+         tests/test_rl_appo_connectors.py configuration), 80 iterations:
+         finite loss, mean return above 0.5, greedy action 1, and the
+         target network frozen between refreshes and equal to the online
+         params after one. Prints each learner update's ms, the sample ms
+         per iteration and env steps/s.
 Timing   each kernel at the main path's shapes (CUDA events, cold L2):
          its time, its plain version's, its bound (P1 also at the verify
          step's K = 4 and at batch 64, on lines of their own), and for the flash
@@ -309,9 +334,13 @@ import sys
 import time
 import types
 
-import numpy as np
-import torch
+_PROCESS_T0 = time.time()  # before numpy and torch load
 
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+# Readings too long for the log (JSON), under the working directory.
+OUT_DIR = os.path.join("build", "chip_smoke")
 # Peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s, dense bf16 FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
@@ -1297,8 +1326,12 @@ def grad_step_checks(cfg, params, tokens):
 
 def profile_train(step, state, data, step_s):
     """Device time of one steady train step by kernel class, from a
-    torch.profiler trace, against the unprofiled step's wall time."""
+    torch.profiler trace, against the unprofiled step's wall time. The
+    classes are _private/kernel_profile.py's: its attention kernels split
+    into F1 and F2, its matmul class less them, and the rest "other"."""
     from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch._private import kernel_profile as kp
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1310,21 +1343,22 @@ def profile_train(step, state, data, step_s):
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        name = ev.key.lower()
+        cat = kp.categorize_kernel_name(ev.key)
+        if cat is None:
+            continue
+        ms = ev.self_device_time_total / 1e3
         # F1 and F2 by prefix, whatever the kernel (bf16 or fp32 route;
         # F2's preprocess, main and convert kernels).
-        kernel = re.search(r"flash_(fwd|bwd)\w*kernel", name)
-        if kernel:
+        kernel = re.search(r"flash_(fwd|bwd)\w*kernel", ev.key.lower())
+        if kp.is_attention_kernel(ev.key) and kernel:
             cls = f"flash_{kernel.group(1)}"
-            flash[kernel.group(0)] = (flash.get(kernel.group(0), 0.0)
-                                      + ev.self_device_time_total / 1e3)
-        elif any(t in name for t in ("gemm", "gemv", "cutlass", "nvjet",
-                                      "xmma", "cublas")):
+            flash[kernel.group(0)] = flash.get(kernel.group(0), 0.0) + ms
+        elif cat == "matmul":
             cls = "matmul"
         else:
             cls = "other"
-            others[ev.key[:60]] = ev.self_device_time_total / 1e3
-        classes[cls] += ev.self_device_time_total / 1e3  # ms
+            others[ev.key[:60]] = ms
+        classes[cls] += ms
     busy = sum(classes.values())
     wall = step_s * 1e3
     check(classes["flash_fwd"] > 0 and classes["flash_bwd"] > 0,
@@ -1339,6 +1373,66 @@ def profile_train(step, state, data, step_s):
     print("  largest of 'other': "
           + "; ".join(f"{k} {v:.1f} ms" for k, v in top))
     return state, dict(classes, busy=busy, idle_share=1 - busy / wall)
+
+
+# One captured step: the device time per step is steady (profile_train
+# reads one too), and the profiler's post-processing of a bench step's
+# events takes seconds per step. Phase 4's state is warm: no warm-up.
+P4_CAPTURE_STEPS = 1
+
+
+def capture_train(cfg, opt, state, data, batch, seq, step_s):
+    """train/profile.py's profile_train_step on phase 4's state and batch:
+    P4_CAPTURE_STEPS captured steps; its attribution report's checks, and
+    the split of its elementwise class by kernel (all kernels' ms go to
+    OUT_DIR/p4_capture.json)."""
+    from ray_tpu_torch._private import kernel_profile as kp
+    from ray_tpu_torch.train import profile
+
+    t0 = time.perf_counter()
+    rep = profile.profile_train_step(
+        cfg, batch_size=batch, seq=seq, steps=P4_CAPTURE_STEPS, warmup=0,
+        device="cuda", state=state, optimizer=opt, batch=data)
+    took = time.perf_counter() - t0
+    m, n = rep["measured"], rep["steps"]
+    card = card_line()
+    shares = rep["shares"]
+    print(f"  capture (profile_train_step, {n} steps, {took:.1f} s with its "
+          f"warm-up and trace export): step {rep['step_s'] * 1e3:.1f} ms "
+          f"(unprofiled {step_s * 1e3:.1f} ms), mfu {rep['mfu']:.4f}; "
+          "shares " + ", ".join(f"{k} {v:.4f}" for k, v in shares.items())
+          + f"; dominant gap {rep['dominant_gap']} [{card}]")
+    print("  capture, device ms per step: "
+          + ", ".join(f"{k} {v * 1e3 / n:.1f}"
+                      for k, v in m["categories"].items())
+          + f"; attention kernels {m['attention_ms'] / n:.1f}; busy "
+          f"{m['device_busy_s'] * 1e3 / n:.1f}")
+    for cat in ("elementwise_fusion", "layout"):
+        print(f"  capture, largest of {cat}, ms per step: "
+              + "; ".join(f"{kp.brief(k)} {v / n:.2f}"
+                          for k, v in kp.largest(m, cat, 8)))
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "p4_capture.json"), "w") as f:
+        json.dump({"card": card, "steps": n, "report": {
+            k: rep[k] for k in ("shares", "seconds", "step_s", "mfu",
+                                "dominant_gap")},
+            "measured": m}, f, indent=1)
+    check(abs(sum(shares.values()) - 1.0) <= 0.10,
+          f"4: the capture's shares sum to {sum(shares.values()):.4f}")
+    check(rep["dominant_gap"] != "compute_floor" and rep["mfu"] > 0,
+          f"4: dominant gap {rep['dominant_gap']}, mfu {rep['mfu']}")
+    check(rep["seconds"]["compute_floor"] <= rep["step_s"],
+          f"4: compute floor {rep['seconds']['compute_floor']} s above the "
+          f"step's {rep['step_s']} s")
+    check(m["categories"]["matmul"] > 0 and m["attention_ms"] > 0,
+          f"4: the capture's matmul class {m['categories']}")
+    return rep["state"], {
+        "shares": shares, "dominant": rep["dominant_gap"], "mfu": rep["mfu"],
+        "step_ms": rep["step_s"] * 1e3, "took_s": took,
+        "ms": {k: v * 1e3 / n for k, v in m["categories"].items()},
+        "attention_ms": m["attention_ms"] / n,
+        "elementwise": [(kp.brief(k), v / n) for k, v in
+                        kp.largest(m, "elementwise_fusion", 8)]}
 
 
 def time_ce_and_optimizer(cfg, opt, state, batch, seq):
@@ -1449,6 +1543,7 @@ def phase4(seed, device="cuda", batch=16, seq=2048, warmup=2, steps=4):
 
     modes = remat_modes(cfg, state.params, data)
     state, prof = profile_train(step, state, data, step_s)
+    state, capture = capture_train(cfg, opt, state, data, batch, seq, step_s)
     ce_ms, opt_ms = time_ce_and_optimizer(cfg, opt, state, batch, seq)
     # The same weights through the kernels and through the plain dense
     # attention, at batch 2 (the dense path keeps [B, H, S, S] scores).
@@ -1457,7 +1552,8 @@ def phase4(seed, device="cuda", batch=16, seq=2048, warmup=2, steps=4):
             "f2_launches": r["launches"][1], "tokens_per_s": tps,
             "peak_share": share, "step_ms": step_s * 1e3,
             "peak_gib": peak / 2**30,
-            "losses": r["losses"], "profile": prof, "ce_ms": ce_ms,
+            "losses": r["losses"], "profile": prof, "capture": capture,
+            "ce_ms": ce_ms,
             "opt_ms": opt_ms, "grad_err": grad_err, "modes": modes}
 
 
@@ -1947,10 +2043,11 @@ def rank_serve(seed, tp):
 
 
 # Depth of the two-rank training runs of phases 8b, 9 (not 9a's
-# pipeline) and 12c: the bench preset at full width with 6 of its 24
-# layers. Over gloo a step's time is its host copies, which grow with
-# the depth; each run is held to one process at the same depth.
-TWO_RANK_LAYERS = 6
+# pipeline) and 12c: the bench preset at full width with 2 of its 24
+# layers (6 before phase 17 came). Over gloo a step's time is its host
+# copies, which grow with the depth; each run is held to one process at
+# the same depth.
+TWO_RANK_LAYERS = 2
 
 
 def two_rank_bench():
@@ -4477,6 +4574,7 @@ def p16_trial_loop(config):
         init_train_state,
         jit_train_step,
         make_optimizer,
+        profile,
     )
     from ray_tpu_torch.util import state as rstate
 
@@ -4557,6 +4655,11 @@ def p16_trial_loop(config):
                      "every trial's checkpoint")
         with open(path, "a") as f:
             f.write(json.dumps(rec) + "\n")
+        # The step profiler's boundary (telemetry.finish_step calls it in
+        # a step_span loop; report()'s steps here carry the loss the
+        # sweep's ledger ranks, and do not): a no-op until the head's
+        # profile_capture fan-out arms it.
+        profile.step_hook(ctx, rec["wall"])
         train.report({"loss": rec["loss"]})
         if saver is not None and state.step == config["save_at"]:
             wait_for(lambda: sweep_row().get("forks", 0) >= 1, "the fork")
@@ -4647,17 +4750,83 @@ def p16_readings(name, sweep, res, recs):
     return out
 
 
+def p16_capture_requester(done, got):
+    """Once a trial has reported step 1 to the head's train ledger, ask
+    the head for a capture of the next step of every rank
+    (util.state.profile_capture); returns at once after, or at ``done``."""
+    from ray_tpu_torch.util import state as rstate
+
+    end = time.monotonic() + P16_DEADLINE_S
+    while not done.is_set() and time.monotonic() < end:
+        jobs = rstate.train_stats().get("jobs", {})
+        if any((j.get("steps") or 0) >= 1 for j in jobs.values()):
+            got["at"] = time.time()
+            got["reply"] = rstate.profile_capture(steps=1)
+            return
+        time.sleep(0.2)
+
+
+P16_SPAN_KEYS = ("train_job", "train_rank", "train_attempt", "profile_sig",
+                 "profile_steps", "profile_step_s", "profile_shares",
+                 "profile_dominant", "path")
+
+
+def p16_capture_checks(got):
+    """The profile:step spans the capture sent to the head: at least one,
+    with the reference's keys and a measured matmul time above 0; and
+    the head's profile ledger holding their jobs."""
+    import ray_tpu_torch.api as api
+    from ray_tpu_torch.util import state as rstate
+
+    check("reply" in got and got["reply"].get("ok") is True,
+          f"16a: profile_capture was not acknowledged: {got}")
+    rt = api._runtime
+    events = rt.run(rt.core.head.call("list_task_events", limit=20000,
+                                      raw=True))["events"]
+    spans = [e for e in events if e.get("name") == "profile:step"]
+    stats = rstate.profile_stats()["jobs"]
+    card = card_line()
+    for e in spans:
+        print(f"  16a capture {e.get('train_job')}: step "
+              f"{e.get('profile_step_s', 0) * 1e3:.1f} ms, measured s "
+              f"{e.get('profile_measured_s')}, shares "
+              f"{e.get('profile_shares')}, dominant "
+              f"{e.get('profile_dominant')} [{card}]")
+    check(spans and all(all(k in e for k in P16_SPAN_KEYS) for e in spans),
+          f"16a: profile:step spans at the head: {spans}")
+    check(any((e.get("profile_measured_s") or {}).get("matmul", 0) > 0
+              for e in spans),
+          "16a: no captured span measured matmul time")
+    check(all(e["train_job"] in stats for e in spans
+              if e.get("train_rank") == 0),
+          f"16a: profile_stats jobs {sorted(stats)}")
+    return {"spans": len(spans), "requested_at": got["at"],
+            "measured": [e.get("profile_measured_s") for e in spans]}
+
+
 def phase16a(seed, p12, plan_kwargs, work):
-    """LedgerASHA over 4 learning rates, two gangs at a time."""
+    """LedgerASHA over 4 learning rates, two gangs at a time; a capture
+    requested through the head once a trial has reported step 1."""
+    import threading
+
     cfg, _ = p12_config()
     out = os.path.join(work, "asha")
     os.makedirs(out)
-    sweep, res, row, recs = p16_run(
-        "phase16a", {"lr": {"grid_search": list(P16A_LRS)},
-                     "steps": P12_STEPS, "seed": seed, "rungs": [2, 4]},
-        out, os.path.join(work, "results"), plan_kwargs=plan_kwargs,
-        scheduler=p16_judged_asha(out, metric="loss", mode="min",
-                                  grace_period=2, reduction_factor=2))
+    done, got = threading.Event(), {}
+    requester = threading.Thread(target=p16_capture_requester,
+                                 args=(done, got), daemon=True)
+    requester.start()
+    try:
+        sweep, res, row, recs = p16_run(
+            "phase16a", {"lr": {"grid_search": list(P16A_LRS)},
+                         "steps": P12_STEPS, "seed": seed, "rungs": [2, 4]},
+            out, os.path.join(work, "results"), plan_kwargs=plan_kwargs,
+            scheduler=p16_judged_asha(out, metric="loss", mode="min",
+                                      grace_period=2, reduction_factor=2))
+    finally:
+        done.set()
+        requester.join(timeout=30)
+    capture = p16_capture_checks(got)
     stopped = sorted(t for t, r in row["trials"].items()
                      if r.get("stop_reason") == "rung")
     ran = {t: len(recs[t][0]["steps"]) for t in recs}
@@ -4668,7 +4837,13 @@ def phase16a(seed, p12, plan_kwargs, work):
                  else "ran to the end")
               + ": losses " + ", ".join(
                   f"{s['loss']:.6f}" for s in recs[t.trial_id][0]["steps"]))
-    check(stopped and all(ran[t] < P12_STEPS for t in stopped),
+    # Every stopped trial stopped at one of its rungs, and at least one
+    # before its last step. A trial may also be stopped at the last rung
+    # (4), after its last step: when the lr 1e-4 trial is judged first at
+    # rung 2 it goes on, and if lr 3e-4 then reaches rung 4 first, 1e-4's
+    # worse loss there is stopped.
+    check(any(ran[t] < P12_STEPS for t in stopped)
+          and all(ran[t] in (2, P12_STEPS) for t in stopped),
           f"16a: ASHA stopped {stopped}, steps run {ran}")
     spans = [(launch["loop_start"], launch["steps"][-1]["end"])
              for launches in recs.values() for launch in launches]
@@ -4693,7 +4868,7 @@ def phase16a(seed, p12, plan_kwargs, work):
     read = p16_readings("a", sweep, res, recs)
     return {**read, "stopped": stopped, "ran": ran, "max_rel": max(rel),
             "launches": per, "f1": sum(p[0] for p in per),
-            "f2": sum(p[1] for p in per)}
+            "f2": sum(p[1] for p in per), "capture": capture}
 
 
 def phase16b(seed, work):
@@ -4828,6 +5003,219 @@ def phase16(seed, p12):
     finally:
         rt.shutdown()
     return {"a": a, "b": b}
+
+
+# ------------------------------------------------------------ phase 17
+# The JAX package's test configurations: tests/test_rl.py's PPO,
+# tests/test_rl_appo_connectors.py's APPO and its target-refresh case.
+P17_PPO = dict(env="Chain", env_kwargs={"n": 6}, num_env_runners=2,
+               num_envs_per_runner=4, rollout_len=32, hidden=(32,),
+               lr=3e-3, seed=0)
+P17_PPO_ITERS = 15
+P17_APPO = dict(P17_PPO, target_update_freq=4)
+P17_APPO_ITERS = 80
+P17_REFRESH = dict(env="Chain", env_kwargs={"n": 4}, num_env_runners=1,
+                   num_envs_per_runner=2, rollout_len=8, hidden=(8,),
+                   target_update_freq=1000, updates_per_rollout=1, seed=0)
+P17_REL = 1e-5
+
+
+class P17Meter:
+    """Wraps an algorithm's learner update and runner sampling: the ms of
+    each (a learner update ends in a host read of its metrics, so its
+    clock covers the card's work), and the first update's batch, weights
+    and results."""
+
+    def __init__(self, algo):
+        self.update_ms, self.sample_ms, self.first = [], [], None
+        learner, runners = algo.learner, algo.runners
+        update, sample = learner.update, runners.sample
+
+        def timed_update(batch, *extra):
+            before = learner.get_weights() if self.first is None else None
+            t0 = time.perf_counter()
+            out = update(batch, *extra)
+            self.update_ms.append((time.perf_counter() - t0) * 1e3)
+            if before is not None:
+                self.first = {"batch": dict(batch), "before": before,
+                              "out": out, "after": learner.get_weights()}
+            return out
+
+        def timed_sample(*a, **k):
+            t0 = time.perf_counter()
+            out = sample(*a, **k)
+            self.sample_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        learner.update, runners.sample = timed_update, timed_sample
+
+
+def p17_redo_on_cpu(algo, first):
+    """The first learner update again through the port on the CPU (TF32
+    is off in this process): the same loss, optimizer, batch and
+    weights."""
+    from ray_tpu_torch.rl.learner import Learner
+    from ray_tpu_torch.rl.module import tree_leaves
+
+    learner = algo.learner
+    cpu = Learner(algo.module, learner.loss_fn, learner.optimizer,
+                  device="cpu")
+    cpu.set_weights(first["before"])
+    cpu.opt_state = cpu.optimizer.init(cpu.params)
+    out = cpu.update(first["batch"])
+    worst = {}
+    for k in ("loss", "grad_norm"):
+        worst[k] = abs(out[k] - first["out"][k]) / abs(out[k])
+    got = tree_leaves(first["after"])
+    for i, (a, b) in enumerate(zip(got, tree_leaves(cpu.params))):
+        b = b.numpy()
+        worst[f"leaf {i}"] = float(np.abs(a - b).max()
+                                   / max(np.abs(b).max(), 1e-30))
+    return worst
+
+
+def p17_summary(label, meter, iters, steps, wall):
+    """Prints the update and sample ms and env steps/s; every update's and
+    every iteration's ms go to OUT_DIR/p17<label>.json."""
+    ms = np.array(meter.update_ms)
+    card = card_line()
+    path = os.path.join(OUT_DIR, f"p17{label}.json")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(path, "w") as f:
+        json.dump({"card": card, "update_ms": meter.update_ms,
+                   "sample_ms": meter.sample_ms}, f)
+    print(f"  17{label}: {len(ms)} learner updates, ms min {ms.min():.3f} "
+          f"median {np.median(ms):.3f} max {ms.max():.3f} (each in {path}); "
+          f"sample ms per iteration median {np.median(meter.sample_ms):.2f} "
+          f"over {len(meter.sample_ms)}; {steps} env steps in {wall:.2f} s "
+          f"of {iters} iterations, {steps / wall:.1f} env steps/s [{card}]")
+    return {"update_ms": [float(x) for x in ms],
+            "update_ms_median": float(np.median(ms)),
+            "sample_ms_median": float(np.median(meter.sample_ms)),
+            "env_steps_per_s": steps / wall, "wall_s": wall}
+
+
+def phase17a(algo):
+    """PPO on the chain, the learner on cuda."""
+    from ray_tpu_torch.rl.module import tree_leaves
+
+    try:
+        meter = P17Meter(algo)
+        t0, steps = time.perf_counter(), 0
+        for _ in range(P17_PPO_ITERS):
+            result = algo.train()
+            steps += result["num_env_steps_sampled"]
+        wall = time.perf_counter() - t0
+        obs = np.zeros((1, 6), np.float32)
+        obs[0, 0] = 1.0
+        action = int(algo.compute_actions(obs)[0])
+        devices = {str(t.device) for t in tree_leaves(algo.learner.params)}
+        worst = p17_redo_on_cpu(algo, meter.first)
+    finally:
+        algo.stop()
+    key = max(worst, key=worst.get)
+    print(f"  17a PPO: mean return {result['episode_return_mean']:.3f} after "
+          f"{result['training_iteration']} iterations, loss "
+          f"{result['loss']:.6f}, greedy action at the start {action}, "
+          f"params on {sorted(devices)}; first update again on the CPU: "
+          f"loss {meter.first['out']['loss']:.8f}, grad_norm "
+          f"{meter.first['out']['grad_norm']:.8f}, worst relative "
+          f"difference {key} {worst[key]:.3e} (limit {P17_REL:g})")
+    check(result["episode_return_mean"] > 0.5
+          and result["training_iteration"] == P17_PPO_ITERS,
+          f"17a: PPO mean return {result['episode_return_mean']}")
+    check(devices == {"cuda:0"}, f"17a: learner params on {devices}")
+    check(action == 1, f"17a: greedy action at the start {action}")
+    check(all(np.isfinite(v) and v <= P17_REL for v in worst.values()),
+          f"17a: the CPU update differs: {worst}")
+    return {**p17_summary("a", meter, P17_PPO_ITERS, steps, wall),
+            "return": result["episode_return_mean"],
+            "worst_rel": worst[key], "worst_key": key}
+
+
+def phase17b(algo, refresh):
+    """APPO on the chain (asynchronous sampling), then the target
+    network's refresh on ``refresh`` (its test's configuration)."""
+    from ray_tpu_torch.rl.module import tree_leaves
+
+    try:
+        meter = P17Meter(algo)
+        t0, steps, losses = time.perf_counter(), 0, []
+        for _ in range(P17_APPO_ITERS):
+            # Sampling is asynchronous here (IMPALA's loop waits for the
+            # first of the runners' in-flight rollouts): an iteration's
+            # sample ms is its wall less its learner updates.
+            t_it, n0 = time.perf_counter(), len(meter.update_ms)
+            result = algo.train()
+            meter.sample_ms.append((time.perf_counter() - t_it) * 1e3
+                                   - sum(meter.update_ms[n0:]))
+            steps += result["num_env_steps_sampled"]
+            losses.append(result["loss"])
+        wall = time.perf_counter() - t0
+        obs = np.zeros((1, 6), np.float32)
+        obs[0, 0] = 1.0
+        action = int(algo.compute_actions(obs)[0])
+    finally:
+        algo.stop()
+    print(f"  17b APPO: mean return {result['episode_return_mean']:.3f} after "
+          f"{P17_APPO_ITERS} iterations, loss {losses[-1]:.6f}, greedy action "
+          f"at the start {action}")
+    check(all(np.isfinite(losses)), "17b: an APPO loss is not finite")
+    check(result["episode_return_mean"] > 0.5,
+          f"17b: APPO mean return {result['episode_return_mean']}")
+    check(action == 1, f"17b: greedy action at the start {action}")
+    read = p17_summary("b", meter, P17_APPO_ITERS, steps, wall)
+
+    algo = refresh
+    try:
+        before = tree_leaves(algo.target_params)[0].clone()
+        algo.train()
+        frozen = torch.equal(before, tree_leaves(algo.target_params)[0])
+        moved = not torch.equal(before, tree_leaves(algo.learner.params)[0])
+        algo._updates_since_target = 999  # the next update crosses freq
+        algo.train()
+        refreshed = all(
+            torch.equal(t, o) for t, o in zip(
+                tree_leaves(algo.target_params),
+                tree_leaves(algo.learner.params)))
+        on = {str(t.device) for t in tree_leaves(algo.target_params)}
+    finally:
+        algo.stop()
+    print(f"  17b target network: frozen over an iteration {frozen} (online "
+          f"moved {moved}), equal to the online params after the refresh "
+          f"{refreshed}, on {sorted(on)}")
+    check(frozen and moved and refreshed and on == {"cuda:0"},
+          "17b: the APPO target network's refresh")
+    return {**read, "return": result["episode_return_mean"],
+            "loss": losses[-1]}
+
+
+def phase17():
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.rl import APPOConfig, PPOConfig
+
+    print("phase 17: RL on the runtime, the learner on the card, 2 CPU "
+          "env-runner actors (PPO, then APPO)")
+    t0 = time.perf_counter()
+    rt.init(num_cpus=8)
+    try:
+        # The three algorithms' env-runner actors (2 + 2 + 1) start at
+        # once: each build waits for its actors' processes, which spend
+        # seconds importing torch. (rt.shutdown ends them all.)
+        configs = (PPOConfig(**P17_PPO, device="cuda"),
+                   APPOConfig(**P17_APPO, device="cuda"),
+                   APPOConfig(**P17_REFRESH, device="cuda"))
+        with concurrent.futures.ThreadPoolExecutor(len(configs)) as pool:
+            futures = [pool.submit(c.build) for c in configs]
+        algos = [f.result() for f in futures]
+        print(f"  17: PPO, APPO and the refresh case's APPO built together "
+              f"(learners on the card, 5 env-runner actors) in "
+              f"{time.perf_counter() - t0:.2f} s")
+        a = phase17a(algos[0])
+        b = phase17b(algos[1], algos[2])
+    finally:
+        rt.shutdown()
+    return {"a": a, "b": b, "s": time.perf_counter() - t0}
 
 
 def _leaves(tree):
@@ -5145,6 +5533,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     p16 = phase16(args.seed, p12)
     lap("phase 16")
+    p17 = phase17()
+    lap("phase 17")
     prof = p4["profile"]
     print(f"train: {p4['tokens_per_s']:.1f} tokens/s, "
           f"{p4['peak_share']:.2%} of dense bf16 peak, step "
@@ -5293,13 +5683,35 @@ def main() -> int:
           f"{len(b16['launches'])} steps (kernels line: flash_fwd_train_sweep"
           f" {a16['f1'] + b16['f1']}, flash_bwd_sweep "
           f"{a16['f2'] + b16['f2']})")
+    cap, c16 = p4["capture"], a16["capture"]
+    print(f"step profiler: phase 4's capture of the bench step "
+          f"{cap['step_ms']:.1f} ms, mfu {cap['mfu']:.4f}, shares "
+          + ", ".join(f"{k} {v:.4f}" for k, v in cap["shares"].items())
+          + "; device ms per step " + ", ".join(
+              f"{k} {v:.1f}" for k, v in cap["ms"].items())
+          + f" (attention kernels {cap['attention_ms']:.1f}); largest "
+          "elementwise kernels " + "; ".join(
+              f"{k[:50]} {v:.2f}" for k, v in cap["elementwise"])
+          + f"; phase 16a: {c16['spans']} profile:step spans at the head "
+          f"[{card}]")
+    a17, b17 = p17["a"], p17["b"]
+    print(f"phase 17, RL: PPO mean return {a17['return']:.3f}, learner "
+          f"update median {a17['update_ms_median']:.3f} ms, sample "
+          f"{a17['sample_ms_median']:.2f} ms per iteration, "
+          f"{a17['env_steps_per_s']:.1f} env steps/s, the CPU redo within "
+          f"{a17['worst_rel']:.3e} ({a17['worst_key']}); APPO mean return "
+          f"{b17['return']:.3f}, update median {b17['update_ms_median']:.3f}"
+          f" ms, sample {b17['sample_ms_median']:.2f} ms, "
+          f"{b17['env_steps_per_s']:.1f} env steps/s; phase 17 "
+          f"{p17['s']:.1f} s [{card}]")
     rows.update({k: tp_rows[k] for k in TP_MAIN_ROWS})
     rows.update(p9["pipeline"]["rows"])
     # Phase 16's trials run the bench step at phase 4's shape: the same
     # timed rows, with the sweep's launches.
     rows["flash_fwd_train_sweep"] = dict(rows["flash_fwd_train"])
     rows["flash_bwd_sweep"] = dict(rows["flash_bwd"])
-    print(f"run took {time.time() - t_start:.1f} s")
+    print(f"run took {time.time() - t_start:.1f} s; "
+          f"{time.time() - _PROCESS_T0:.1f} s since the process started")
     # One row per kernel and main-path shape: the forward kernel runs in
     # the dense prefill (phase 3) and in training (phase 4).
     launches = {"paged_attention": p2["launches"],

@@ -7,8 +7,9 @@ stacks: GPipe pipeline stages (pp) whose bodies are expert-parallel blocks
 ZeRO-3-sharded dense weight (fsdp: gathered at use), the batch cut over
 fsdp. The reference also drives it through its trainer's session and
 gradient bucketer (``composed_trainer_loop``); that loop is not ported
-yet (ROADMAP.md, Queue 1 item 2), though the trainer, the session and the
-bucketer it needs now are.
+yet (ROADMAP.md lists ``parallel/showcase.py``'s ``composed_trainer_loop``
+as open), though the trainer, the session and the bucketer it needs now
+are.
 """
 
 from __future__ import annotations

@@ -1823,12 +1823,22 @@ class NodeManager:
         a tiny keepalive every _SYNC_KEEPALIVE_S so the head's health
         loop still sees liveness. At 2,000 idle nodes this is ~400
         payload-free messages/s cluster-wide instead of 1,000 full
-        snapshots/s."""
+        snapshots/s.
+
+        The keepalive comes at least three times per HEALTH_TIMEOUT_S, so
+        the head's health loop never reaps an idle live node between two
+        keepalives (a node reaped so re-registers on its next keepalive,
+        but in between it is unknown to the head: a drain or a lease
+        placed there in that window fails)."""
+        from ray_tpu_torch._private import config
+
         sent_version = -1
         while True:
+            keepalive_s = min(self._SYNC_KEEPALIVE_S,
+                              config.get("HEALTH_TIMEOUT_S") / 3)
             try:
                 await asyncio.wait_for(
-                    self._sync_event.wait(), timeout=self._SYNC_KEEPALIVE_S
+                    self._sync_event.wait(), timeout=keepalive_s
                 )
                 # Coalesce bursts (a lease storm is one update).
                 await asyncio.sleep(self._SYNC_DEBOUNCE_S)

@@ -252,9 +252,12 @@ def finish_step(ctx, timer: StepTimer) -> None:
     ctx._step_index += 1
     ctx._used_step_timer = True
     ctx._last_report_wall = time.time()
-    # The reference calls train/profile.py's step_hook here, a no-op
-    # until its profiler is armed; the profiler is not ported yet
-    # (ROADMAP.md, Queue 1 item 7).
+    # Step profiler boundary: starts/advances/closes an armed
+    # torch.profiler capture (train/profile.py). Two-branch no-op while
+    # disarmed (pinned by the perf-floor test); never raises.
+    from ray_tpu_torch.train import profile as _profile
+
+    _profile.step_hook(ctx, dur)
     # Per-step memory sample (device by_kind + headroom + host RSS →
     # mem:sample span → head memory ledger). Last: it may raise the
     # RAY_TPU_FAKE_HBM_GB injected ResourceExhausted, and the step's

@@ -260,13 +260,16 @@ def get_trace_events(limit: int = 2000) -> list[dict]:
 class ProfileCapture:
     """Handle yielded by torch_profile: `path` resolves to the session
     directory the profiler wrote (``<log_dir>/plugins/profile/<run>``)
-    after the context exits, None when nothing was written."""
+    after the context exits, None when nothing was written; `profile` is
+    the stopped ``torch.profiler.profile``, for reading its events
+    (``_private/kernel_profile.py``)."""
 
-    __slots__ = ("log_dir", "path")
+    __slots__ = ("log_dir", "path", "profile")
 
     def __init__(self, log_dir: str):
         self.log_dir = log_dir
         self.path: str | None = None
+        self.profile = None
 
 
 def _resolve_capture_path(log_dir: str) -> str | None:
@@ -322,7 +325,10 @@ def torch_profile(log_dir: str | None = None):
     try:
         yield cap
     finally:
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            torch.cuda.synchronize()  # the last step's kernels finish inside
         prof.stop()
+        cap.profile = prof
         run = os.path.join(
             log_dir, "plugins", "profile",
             time.strftime("%Y_%m_%d_%H_%M_%S") + f"_{uuid.uuid4().hex[:6]}",

@@ -137,6 +137,13 @@ def test_port_imports_neither_jax_nor_ray_tpu():
                  "hyperopt_search.py", "optuna_search.py", "schedulers.py",
                  "search.py", "sweep.py", "trial.py", "tuner.py"):
         assert REPO / "ray_tpu_torch" / "tune" / name in files
+    for name in ("__init__.py", "algorithm.py", "appo.py", "bc.py",
+                 "connectors.py", "dqn.py", "env.py", "env_runner.py",
+                 "impala.py", "learner.py", "module.py", "multi_agent.py",
+                 "offline.py", "ppo.py", "replay.py", "sac.py"):
+        assert REPO / "ray_tpu_torch" / "rl" / name in files
+    for name in ("train/profile.py", "_private/kernel_profile.py"):
+        assert REPO / "ray_tpu_torch" / name in files, name
     for name in ("api.py", "placement.py", "exceptions.py", "version.py",
                  "_native/shmstore.py", "_private/config.py",
                  "_private/ids.py", "_private/rpc.py",

@@ -97,6 +97,10 @@ COPIED = (
     "util/rpdb.py",
     "util/scheduling_strategies.py",
     "util/state.py",
+    "rl/__init__.py",
+    "rl/connectors.py",
+    "rl/env.py",
+    "rl/replay.py",
 )
 
 # module -> (reason, top-level names that may differ). A name is a def or
@@ -234,8 +238,11 @@ PORTED = {
     ),
     "runtime/node.py": (
         "node labels come from the accelerator registry only: no GCE "
-        "metadata probe over the network",
-        {"detect_labels", "_gce_metadata_labels"},
+        "metadata probe over the network; an idle node's keepalive comes "
+        "three times per HEALTH_TIMEOUT_S (the source's fixed 5 s lets "
+        "a head with a shorter timeout reap a live node between two)",
+        {"detect_labels", "_gce_metadata_labels",
+         "NodeManager._heartbeat_loop"},
     ),
     "runtime/memory.py": (
         "the memory plane samples the CUDA caching allocator, in a process "
@@ -255,10 +262,102 @@ PORTED = {
     ),
     "train/telemetry.py": (
         "MFU reads the GPU's peak and the process group's size; no jax "
-        "host-sync watch and no profile hook (train/profile.py is not "
-        "ported)",
+        "host-sync watch (finish_step calls train/profile.py's step_hook "
+        "as the source does, and leaves out the host-sync attribution)",
         {"PEAK_FLOPS", "DEFAULT_PEAK_FLOPS", "peak_flops_per_chip",
          "host_sync_attribution", "compute_mfu", "finish_step"},
+    ),
+    "train/profile.py": (
+        "the step profiler on torch.profiler: captures are read by "
+        "_private/kernel_profile.py (no xplane); the static floors come "
+        "from the config's FLOPs and gradient bytes (no HLO to walk), "
+        "signed by a hash of the config, batch, sequence and mesh; H100 "
+        "bandwidths; MFU counts the process group's GPUs; a failed "
+        "capture also stops its profiler",
+        {"import glob", "import dataclasses", "HBM_GBPS",
+         "DEFAULT_HBM_GBPS", "ICI_GBPS", "DEFAULT_ICI_GBPS",
+         "_chip_table_lookup", "analyze_compiled", "_analyze_text",
+         "_world_size", "_config_sig", "analyze_train_step",
+         "attribution_report", "_read_capture", "step_hook",
+         "_step_hook_armed", "_finish_capture", "profile_train_step"},
+    ),
+    "rl/module.py": (
+        "functional torch modules: init takes a torch.Generator, forward "
+        "works on tensors; tree helpers, params_to_torch and "
+        "params_from_jax carry weights across",
+        {"import dataclasses", "import typing", "import jax",
+         "import jax.numpy", "import torch", "tree_map", "tree_leaves",
+         "tree_unflatten", "RLModule.init", "RLModule.forward",
+         "_dense_init", "_as_input", "MLPModule.init", "MLPModule.forward",
+         "params_to_numpy", "params_to_torch", "params_from_jax"},
+    ),
+    "rl/learner.py": (
+        "one device, no mesh: the loss under torch.autograd, then the "
+        "optimizer; a dp mesh raises",
+        {"import jax", "import jax.numpy", "import optax",
+         "import jax.sharding", "import numpy", "import torch",
+         "import ray_tpu_torch.rl.module", "LossFn", "_dp_size",
+         "_to_device", "Learner"},
+    ),
+    "rl/algorithm.py": (
+        "the config names the learner's device; "
+        "compute_actions runs there; make_adam is optax's clipped Adam "
+        "by hand",
+        {"import optax", "import torch", "import ray_tpu_torch.rl.module",
+         "AlgorithmConfig", "Algorithm.compute_actions", "ClippedAdam",
+         "make_adam"},
+    ),
+    "rl/env_runner.py": (
+        "the rollout forward is torch on the CPU under no_grad",
+        {"import torch", "import ray_tpu_torch.rl.module",
+         "EnvRunner.__init__", "EnvRunner.set_weights", "_cpu_forward"},
+    ),
+    "rl/ppo.py": (
+        "the loss on tensors; the learner on the config's device",
+        {"import jax", "import jax.numpy", "import torch", "ppo_loss",
+         "PPO._make_learner"},
+    ),
+    "rl/impala.py": (
+        "the loss on tensors; v-trace a reversed loop over time on the "
+        "learner's device in place of lax.scan",
+        {"import jax", "import jax.numpy", "import torch", "vtrace_targets",
+         "_normalized", "vtrace_loss", "IMPALA._make_learner"},
+    ),
+    "rl/appo.py": (
+        "the loss on tensors; the target network a clone refreshed in "
+        "place under no_grad",
+        {"import jax", "import jax.numpy", "import torch",
+         "import ray_tpu_torch.rl.impala", "import ray_tpu_torch.rl.module",
+         "appo_loss", "APPO.__init__", "APPO._make_learner",
+         "APPO._after_update"},
+    ),
+    "rl/dqn.py": (
+        "the loss on tensors; the learner on the config's device",
+        {"import jax", "import jax.numpy", "import torch", "dqn_loss",
+         "DQN._make_learner"},
+    ),
+    "rl/sac.py": (
+        "the module and loss on tensors; polyak targets updated in place "
+        "under no_grad",
+        {"import jax", "import jax.numpy", "import torch",
+         "import ray_tpu_torch.rl.module", "SACModule", "sac_loss",
+         "SAC.__init__", "SAC._make_learner"},
+    ),
+    "rl/bc.py": (
+        "the loss on tensors; the learner on the config's device",
+        {"import jax", "import jax.numpy", "import torch", "bc_loss",
+         "BC._make_learner"},
+    ),
+    "rl/multi_agent.py": (
+        "the rollout forward is torch on the CPU under no_grad",
+        {"import ray_tpu_torch.rl.env_runner",
+         "import ray_tpu_torch.rl.module", "MultiAgentEnvRunner.__init__",
+         "MultiAgentEnvRunner.set_weights"},
+    ),
+    "rl/offline.py": (
+        "the evaluation's forward is torch on the CPU; OfflineBC's "
+        "learner takes the config's device",
+        {"evaluate_policy", "OfflineBC.__init__"},
     ),
     "train/trainer.py": (
         "TorchTrainer: GPU scaling, a NCCL collective group and a default "
@@ -275,8 +374,9 @@ PORTED = {
         {"SweepConfig", "Sweep._make_trainer", "Sweep._admit_and_launch"},
     ),
     "util/tracing.py": (
-        "jax_profile becomes torch_profile (torch.profiler, Chrome trace)",
-        {"jax_profile", "torch_profile"},
+        "jax_profile becomes torch_profile (torch.profiler, Chrome trace); "
+        "its capture handle keeps the stopped profiler for reading",
+        {"ProfileCapture", "jax_profile", "torch_profile"},
     ),
     "api.py": (
         "num_gpus maps to the GPU resource, as num_tpus maps to TPU",
@@ -293,7 +393,6 @@ PORTED = {
 MISSING = {
     "ray_tpu_torch._private.lint",
     "ray_tpu_torch.autoscaler",
-    "ray_tpu_torch.train.profile",
 }
 
 
