@@ -170,20 +170,22 @@ Phase 11 the collective data plane and the device-object transport:
          (d) one of them returns a 256 MiB CUDA tensor under
          tensor_transport and the other gets it, over the RPC fetch and
          over the group's send/recv: bits equal, seconds and GB/s.
-Phase 12 the Train library on the runtime: (a) phase 7's bench state
-         (4.446 GB) saved through checkpoint.AsyncCheckpointer into the
+Phase 12 the Train library on the runtime: (a) the bench preset's
+         train state at P12_LAYERS of its 24 layers (full width) saved
+         through checkpoint.AsyncCheckpointer into the
          shard store (the seconds save() stalls the caller beside phase
          7's torch.save, the background persist's seconds, logical and
          written bytes), again after one step (the dedup ratio), and
          restored into a fresh state bit for bit; (b) TorchTrainer with
-         one GPU worker trains the bench preset 2 steps, checkpointing
+         one GPU worker trains the bench preset at P12_LAYERS of its 24
+         layers (full width) 2 steps, checkpointing
          through report(checkpoint=uri), and a second fit resumes from
          the store for steps 3-4: losses within 2^-8 relative of an
-         uninterrupted 4-step run, 24 F1 + 24 F2 launches per step,
+         uninterrupted 4-step run, one F1 + one F2 launch per layer per step,
          tokens/s through the trainer and the controller's seconds per
          step; (c) TorchTrainer with two half-GPU workers over gloo on
-         an fsdp=2 mesh: (a)'s checkpoint restored resharded (each local
-         shard bit for bit its slice of the saved leaf), the bench
+         an fsdp=2 mesh: (b)'s step-2 checkpoint restored resharded (each
+         local shard bit for bit its slice of the saved leaf), the bench
          preset's first two steps at phase 8b's depth (TWO_RANK_LAYERS)
          under fsdp=2 (losses and gradient norms within
          TWO_RANK_LOSS_REL / TWO_RANK_NORM_REL of the same steps in one
@@ -236,12 +238,12 @@ Phase 15 Ray Data on the runtime: (a) phase 2's 8 prompts (token lists
          one GPU worker on the bench preset: get_dataset_shard("train")
          .iter_batches(batch_size=16), each batch moved to the card in a
          step_span's data_wait phase; losses within 2^-8 relative of
-         phase 12b's uninterrupted run's first three, 24 F1 + 24 F2
-         launches per step, every row read once in order (a CRC per row);
+         phase 12b's uninterrupted run's first three, one F1 + one F2
+         launch per layer per step, every row read once in order (a CRC per row);
          tokens/s beside phase 12b's and data_wait per step.
 Phase 16 Tune on the runtime: Sweeps of TorchTrainer gangs, each trial
          one worker on a 0.5 GPU lease (two gangs share the card) training
-         phase 12b's bench step at full width and depth on 12b's batches
+         phase 12b's bench step (full width, P12_LAYERS) on 12b's batches
          at its own learning rate, reporting loss every step. (a)
          LedgerASHA (grace 2, factor 2) over lr 3e-4, 1e-4, 3e-5, 1e-5, 4
          steps each, admitted with the memory planner's price: every trial
@@ -249,7 +251,7 @@ Phase 16 Tune on the runtime: Sweeps of TorchTrainer gangs, each trial
          steps and every stopped one at a rung (2 or 4; a trial at a rung
          waits for the decision), at most two
          loops at a time and at least two overlapping, the sampled free GPU
-         reaching 0 and never below, 24 F1 + 24 F2 per step, the lr 3e-4
+         reaching 0 and never below, one F1 + one F2 per layer per step, the lr 3e-4
          trial's losses within 2^-8 of phase 12b's uninterrupted run, the
          head's sweep row FINISHED with every trial journaled; once a
          trial has reported step 1 to the head's train ledger this
@@ -267,7 +269,7 @@ Phase 16 Tune on the runtime: Sweeps of TorchTrainer gangs, each trial
          no new chunk (dedup ratio 1), the relaunched loser at the
          mutation, its restored state bit for bit the winner's checkpoint
          and its first loss within 1e-5 of the winner's at that step, the
-         lineage in sweep_stats, 24 + 24 per step; the card as free after
+         lineage in sweep_stats, one + one per layer per step; the card as free after
          the sweeps as before. Prints each sweep's makespan and
          chip_idle_fraction, each trial's fit set-up seconds and tokens/s,
          the saves' stall and persist seconds, the fork's seconds and the
@@ -285,6 +287,36 @@ Phase 17 RL on the runtime, the learner on the card in this process and 2
          target network frozen between refreshes and equal to the online
          params after one. Prints each learner update's ms, the sample ms
          per iteration and env steps/s.
+Phase 17c (in phase 17's runtime) parallel/showcase.py's
+         composed_trainer_loop through TorchTrainer.fit: 4 workers of 0.25
+         GPU over gloo on the {pp: 2, ep: 2, fsdp: 1} mesh, 2 steps with
+         the bucketed overlap sync (1 KiB buckets): no error, a
+         checkpoint with params.npz, at least 2 buckets, a finite loss,
+         exposed comm in the head's train ledger; loss, gradient norm and
+         every step's params within 1e-5 of the program's plain
+         arithmetic on the CPU from the same parameters (p17c_plain).
+Phase 18 (run after phase 16, before 17) ResNet (models/resnet.py):
+         resnet18 at its published widths on
+         the JAX package's synthetic recipe at 32 x 32, B=256, bf16
+         convolutions (channels_last, cuDNN): the first step's loss and
+         gradients held to the same step in fp32 on the CPU
+         (P18_LOSS_REL, P18_GRAD_REL, and each gradient leaf to
+         P18_LEAF_K times the CPU's own bf16 step's reading on it in the
+         same run), 30 Adam steps whose loss ends
+         below half the first, images/s over steps 10-30; resnet50's
+         forward at B=8, 224 x 224: finite fp32 [8, 1000] logits.
+Phase 19 (run while phase 17c's fit starts its workers) the port's
+         own cluster from its CLI: `start --head --port 0` (auth on,
+         session under build/chip_smoke/p19), `status` showing one node
+         with GPU 1.0 detected from the card; a job submitted through the
+         job REST of a `scripts dashboard` process (POST /api/jobs, then
+         GET /api/jobs/<id> until it ends) whose entrypoint (a script
+         written there) connects with ray_tpu_torch.init(address=...) and serves
+         phase 2's mini prompts from a num_gpus=1 task (weights drawn from
+         the seed on the card): SUCCEEDED, every stream equal to phase
+         2's, P1 launched 12 times per decode step (added to the kernels
+         line's paged_attention_d64 count); `list jobs`, `head --json`,
+         `mem --json` exit 0; `stop` leaves no daemon alive.
 Timing   each kernel at the main path's shapes (CUDA events, cold L2):
          its time, its plain version's, its bound (P1 also at the verify
          step's K = 4 and at batch 64, on lines of their own), and for the flash
@@ -329,6 +361,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -3413,6 +3446,12 @@ def phase11(seed):
 P12_STEPS, P12_SAVE_AT = 4, 2
 P12_BATCH, P12_SEQ = 16, 2048  # phase 4's batch
 P12_POOL_BYTES = 24 << 30  # the node's shm pool: two saves of 4.446 GB fit
+# Depth of the trainer, Data and Tune runs (12b, 15b, 16): the bench preset
+# at full width with P12_LAYERS of its 24 layers (all 24 before phases 18
+# and 19 came: their time is fits, persists and restores of the state,
+# which shrink with it). 12a saves and restores a state of that depth too;
+# 12c restores 12b's checkpoint.
+P12_LAYERS = 6
 
 
 def p12_batch(cfg, seed, i):
@@ -3424,23 +3463,26 @@ def p12_batch(cfg, seed, i):
         dtype=np.int64)).to("cuda")}
 
 
-def p12_config():
-    """The bench preset (flash, remat flash_qkv) and phase 7's optimizer
-    (bf16 first moment) without warm-up: the first update already runs at
-    the full learning rate and moves every parameter."""
+def p12_config(layers=P12_LAYERS):
+    """The bench preset (flash, remat flash_qkv) at ``layers`` layers (None:
+    all of them) and phase 7's optimizer (bf16 first moment) without
+    warm-up: the first update already runs at the full learning rate and
+    moves every parameter."""
     from ray_tpu_torch.models.llama import PRESETS
     from ray_tpu_torch.train import make_optimizer
 
     cfg = dataclasses.replace(PRESETS["bench"], attn_impl="flash")
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     return cfg, make_optimizer(lr=3e-4, warmup=0, total_steps=P12_STEPS,
                                mu_dtype=torch.bfloat16)
 
 
-def p12_setup(seed):
+def p12_setup(seed, layers=P12_LAYERS):
     """p12_config and its train state from the seed."""
     from ray_tpu_torch.train import init_train_state
 
-    cfg, opt = p12_config()
+    cfg, opt = p12_config(layers)
     return cfg, opt, init_train_state(cfg, opt, seed=seed, device="cuda")
 
 
@@ -3543,8 +3585,8 @@ def p12_worker_loop(config):
 def p12_two_worker_loop(config):
     """TorchTrainer's loop for phase 12c, on each of two workers (an fsdp=2
     mesh over the trainer's default gloo group, both on cuda:0): phase
-    12a's checkpoint restored onto fsdp=2 DTensors (each local shard bit
-    for bit its slice of the saved leaf); then the bench preset's first
+    12b's step-2 checkpoint restored onto fsdp=2 DTensors (each local shard
+    bit for bit its slice of the saved leaf); then the bench preset's first
     two steps at TWO_RANK_LAYERS under fsdp=2 (rank_train); that state
     saved into the shard store from both ranks (each its windows)."""
     import ray_tpu_torch.train as train
@@ -3577,7 +3619,7 @@ def p12_two_worker_loop(config):
 
 def phase12(seed, p4):
     """The Train library on the port's runtime (ray_tpu_torch.init).
-    (a) phase 7's bench state (4.446 GB) saved through AsyncCheckpointer:
+    (a) the bench state at P12_LAYERS layers saved through AsyncCheckpointer:
     the seconds save() stalls the caller (the device-to-host copy) beside
     phase 7's torch.save, the background persist's seconds, logical and
     written bytes; saved again after one step at the full learning rate
@@ -3589,8 +3631,8 @@ def phase12(seed, p4):
     4-step run in this process (phase 7's rule), 24 F1 and 24 F2 launches
     per step; tokens/s through the trainer and the controller's seconds
     per step. (c) TorchTrainer with two half-GPU workers, distributed
-    over gloo on an fsdp=2 mesh: (a)'s checkpoint restored resharded
-    (each rank's local shard bit for bit its slice), the bench preset's
+    over gloo on an fsdp=2 mesh: (b)'s step-2 checkpoint restored
+    resharded (each rank's local shard bit for bit its slice), the bench preset's
     first two steps at TWO_RANK_LAYERS under fsdp=2 (losses and gradient
     norms within TWO_RANK_LOSS_REL / TWO_RANK_NORM_REL of one process),
     the state checkpointed from both ranks."""
@@ -3656,7 +3698,7 @@ def phase12(seed, p4):
         torch.cuda.empty_cache()
 
         # (b) one worker, resumed from the store.
-        _, _, state = p12_setup(seed)
+        cfg, opt, state = p12_setup(seed)
         _, whole = p12_steps(cfg, opt, state, seed, P12_STEPS)
         del state
         gc.collect()
@@ -3706,8 +3748,9 @@ def phase12(seed, p4):
         tps = P12_BATCH * P12_SEQ * len(walls) / sum(walls)
         overhead = (first_s + second_s - first.metrics["loop_s"]
                     - second.metrics["loop_s"]) / P12_STEPS
-        print(f"  12b TorchTrainer: {tps:.1f} tokens/s (steps after each "
-              f"fit's first; phase 4 {p4['tokens_per_s']:.1f}), fits "
+        print(f"  12b TorchTrainer ({cfg.n_layers} layers): {tps:.1f} "
+              f"tokens/s (steps after each fit's first; phase 4 at 24 "
+              f"layers {p4['tokens_per_s']:.1f}), fits "
               f"{first_s:.1f} s + {second_s:.1f} s, the controller's "
               f"{overhead:.2f} s per step (fit walls less the loops' own "
               f"seconds, over {P12_STEPS} steps); F1 + F2 launches per "
@@ -3727,7 +3770,7 @@ def phase12(seed, p4):
         with tempfile.TemporaryDirectory(prefix="chip_smoke_p12c_") as tmp:
             res = TorchTrainer(
                 p12_two_worker_loop,
-                train_loop_config={"seed": seed, "uri": out["a"]["uri"],
+                train_loop_config={"seed": seed, "uri": first.checkpoint,
                                    "run": "phase12c"},
                 scaling_config=ScalingConfig(
                     num_workers=2, use_gpu=True, gpus_per_worker=0.5,
@@ -3739,7 +3782,7 @@ def phase12(seed, p4):
         check(m["mismatched"] == 0 and m["shards"] > 0,
               f"12c: {m['mismatched']} restored leaves differ from their "
               f"slices of the saved ones ({m['shards']} sharded)")
-        print(f"  12c: 12a's checkpoint restored onto fsdp=2 in "
+        print(f"  12c: 12b's checkpoint restored onto fsdp=2 in "
               f"{m['restore_s']:.2f} s (rank 0), {m['shards']} leaves "
               f"sharded, every local shard bit for bit its slice")
         for i, (loss, norm) in enumerate(zip(m["losses"], m["norms"])):
@@ -5190,7 +5233,9 @@ def phase17b(algo, refresh):
             "loss": losses[-1]}
 
 
-def phase17():
+def phase17(during=None):
+    """17a-b, then 17c's fit, with ``during()`` called while it runs
+    (its result under "during")."""
     import ray_tpu_torch as rt
     from ray_tpu_torch.rl import APPOConfig, PPOConfig
 
@@ -5213,9 +5258,522 @@ def phase17():
               f"{time.perf_counter() - t0:.2f} s")
         a = phase17a(algos[0])
         b = phase17b(algos[1], algos[2])
+        s = time.perf_counter() - t0
+        c = phase17c(during)
     finally:
         rt.shutdown()
-    return {"a": a, "b": b, "s": time.perf_counter() - t0}
+    return {"a": a, "b": b, "c": c, "s": s}
+
+
+# ------------------------------------------------------------ phase 17c
+# The composed pp x ep x fsdp loop (parallel/showcase.py) through
+# TorchTrainer, as the JAX package's dry run drives it through JaxTrainer.
+P17C_STEPS = 2
+P17C_REL = 1e-5
+
+
+def p17c_fit(name, scaling, config, work):
+    from ray_tpu_torch.parallel.showcase import composed_trainer_loop
+    from ray_tpu_torch.train import RunConfig, TorchTrainer
+
+    t0 = time.perf_counter()
+    result = TorchTrainer(
+        composed_trainer_loop, train_loop_config=config,
+        scaling_config=scaling,
+        run_config=RunConfig(name=name, storage_path=work)).fit()
+    return result, time.perf_counter() - t0
+
+
+def p17c_saved(work, name):
+    """Every step's rank-0 params.npz of a fit, in step order."""
+    out = []
+    for path in sorted(glob.glob(os.path.join(work, name, "*",
+                                              "params.npz"))):
+        with np.load(path) as z:
+            out.append({k: z[k] for k in z.files})
+    return out
+
+
+def p17c_plain(init, steps):
+    """The composed program's arithmetic in one process on the CPU, no
+    mesh (fp32): two stages of the dense block and the masked sum over
+    every expert on the batch of ones, the loss mean(y ** 2), then
+    ``p - 0.1 g``. Per step: (loss, gradient norm, params after)."""
+    from ray_tpu_torch.parallel.showcase import D, N_EXPERTS, PP
+
+    p = {k: torch.tensor(v, dtype=torch.float32) for k, v in init.items()}
+    out = []
+    for _ in range(steps):
+        e = p["experts"].detach().requires_grad_(True)
+        d = p["dense"].detach().requires_grad_(True)
+        x = torch.ones((4, D))  # composed_value_and_grad's batch at fsdp 1
+        for s in range(PP):
+            x = x + torch.tanh(x @ d[s])
+            outs = torch.einsum("md,edh->emh", x, e[s])
+            assigned = (x[:, 0].abs() * 100).to(torch.int32) % N_EXPERTS
+            mask = assigned[None, :] == torch.arange(N_EXPERTS)[:, None]
+            x = x + torch.tanh(torch.sum(outs * mask[..., None], dim=0))
+        loss = torch.mean(x ** 2)
+        ge, gd = torch.autograd.grad(loss, [e, d])
+        p = {"experts": e.detach() - 0.1 * ge,
+             "dense": d.detach() - 0.1 * gd}
+        out.append((float(loss.detach()),
+                    float(torch.sqrt(torch.sum(ge * ge) + torch.sum(gd * gd))),
+                    {k: v.numpy() for k, v in p.items()}))
+    return out
+
+
+def phase17c(during=None):
+    """composed_trainer_loop on 4 workers of 0.25 GPU over gloo (the
+    {pp: 2, ep: 2, fsdp: 1} mesh, bucketed overlap sync), held to the
+    program's plain arithmetic on the CPU from the same parameters
+    (p17c_plain); ``during()`` runs meanwhile (the fit's time is its
+    workers' start)."""
+    from ray_tpu_torch.parallel.showcase import make_composed_params
+    from ray_tpu_torch.train import ScalingConfig
+    from ray_tpu_torch.util import state
+
+    work = os.path.abspath(os.path.join(OUT_DIR, "p17c"))
+    shutil.rmtree(work, ignore_errors=True)  # each step's params.npz below
+    init = {k: v.numpy() for k, v in make_composed_params(
+        torch.Generator().manual_seed(7), "cpu").items()}
+    scaling = ScalingConfig(num_workers=4, use_gpu=True, gpus_per_worker=0.25,
+                            grad_overlap=True, grad_bucket_mb=0.001,
+                            distributed=True, dist_backend="gloo")
+    # 17a-b's actors give their CPUs back a moment after they end.
+    deadline = time.monotonic() + 30
+    while sum(n["available"].get("CPU", 0) for n in state.list_nodes()) < 4 \
+            and time.monotonic() < deadline:
+        time.sleep(0.2)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        future = pool.submit(
+            p17c_fit, "p17c_gpu", scaling,
+            {"fsdp": 1, "steps": P17C_STEPS, "device": "cuda",
+             "params": init}, work)
+        want = p17c_plain(init, P17C_STEPS)
+        during_out = during() if during is not None else None
+    res, fit_s = future.result()
+    check(res.error is None, f"17c: the fit failed: {res.error}")
+    check(res.checkpoint is not None and os.path.exists(
+        os.path.join(res.checkpoint, "params.npz")),
+        "17c: the fit persisted no params.npz")
+    got = res.metrics
+    check(got.get("grad_buckets", 0) >= 2 and math.isfinite(got["loss"])
+          and got["step"] == P17C_STEPS - 1, f"17c: metrics {got}")
+    job, deadline = {}, time.time() + 15
+    while time.time() < deadline:
+        job = state.train_stats().get("jobs", {}).get("p17c_gpu", {})
+        if job.get("comm_exposed_s", 0) > 0:
+            break
+        time.sleep(0.3)
+    check(job.get("comm_exposed_s", 0) > 0,
+          f"17c: the train ledger shows no exposed comm: {job}")
+    loss, norm, _ = want[-1]
+    worst = {"loss": abs(got["loss"] - loss) / abs(loss),
+             "grad_norm": abs(got["grad_norm"] - norm) / abs(norm)}
+    saved = p17c_saved(work, "p17c_gpu")
+    check(len(saved) == P17C_STEPS, f"17c: {len(saved)} saved steps")
+    for i, (g, (_, _, w)) in enumerate(zip(saved, want)):
+        check(sorted(g) == sorted(w), f"17c: saved leaves {sorted(g)}")
+        for k in w:
+            worst[f"step {i} {k}"] = float(
+                np.abs(g[k] - w[k]).max() / np.abs(w[k]).max())
+    key = max(worst, key=worst.get)
+    print(f"  17c composed loop: 4 GPU workers (0.25 each, gloo) fit "
+          f"{fit_s:.2f} s; loss {got['loss']:.8f} (plain CPU {loss:.8f}), "
+          f"grad_norm {got['grad_norm']:.8f}, {got['grad_buckets']} buckets, "
+          f"comm exposed {job['comm_exposed_s']:.4f} s; worst relative "
+          f"difference to the plain CPU steps {key} {worst[key]:.3e} (limit "
+          f"{P17C_REL:g}) [{card_line()}]")
+    check(all(v <= P17C_REL for v in worst.values()),
+          f"17c: the GPU fit differs from the plain CPU steps: {worst}")
+    return {"during": during_out, "fit_s": fit_s, "loss": got["loss"],
+            "worst_rel": worst[key], "comm_exposed_s": job["comm_exposed_s"]}
+
+
+# ------------------------------------------------------------ phase 18
+# ResNet (models/resnet.py): resnet18 at its published widths on the JAX
+# package's synthetic recipe (tests/test_resnet.py) at 32 x 32, and
+# resnet50's forward at 224 x 224.
+P18_BATCH, P18_HW, P18_STEPS, P18_LR = 256, 32, 30, 1e-3
+P18_TIMED = (10, 30)  # images/s over these steps
+# bf16 convolutions against the same step in fp32 (CPU): the loss by
+# relative difference, the whole gradient by ||got - want|| / ||want||,
+# and each leaf by its own such reading, held to P18_LEAF_K times what
+# the CPU's own bf16 step reads on that leaf from the same weights and
+# batch in the same run. At the initial weights the gradient is small
+# and rounding heavy, most in the GroupNorm biases (to ~0.19 of their
+# norms on both devices), and the card's reading of a leaf stays near the
+# CPU's.
+P18_LOSS_REL = 3e-4
+P18_GRAD_REL = 6e-2
+P18_LEAF_K = 3.0
+
+
+def p18_synthetic(n, hw, classes=10, seed=0):
+    """tests/test_resnet.py's set: noise plus a bright row at a
+    label-dependent position."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, classes, n)
+    images = rng.normal(0, 0.1, (n, hw, hw, 3)).astype(np.float32)
+    images[np.arange(n), labels % hw, :, :] += 2.0
+    return {"images": torch.from_numpy(images),
+            "labels": torch.from_numpy(labels)}
+
+
+def p18_leaves(tree):
+    """The leaves in p18_map's order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in p18_leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in p18_leaves(v)]
+    return [tree]
+
+
+def p18_map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: p18_map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [p18_map(v, fn) for v in tree]
+    return fn(tree)
+
+
+def p18_step(params, batch, cfg):
+    """The loss and every leaf's gradient (p18_leaves order)."""
+    from ray_tpu_torch.models.resnet import loss_fn
+
+    leaves = [t.detach().requires_grad_(True) for t in p18_leaves(params)]
+    tree = iter(leaves)
+    loss, aux = loss_fn(p18_map(params, lambda _: next(tree)), batch, cfg)
+    return loss, torch.autograd.grad(loss, leaves), aux
+
+
+def p18_classes(params):
+    """Each leaf's class, in p18_leaves order."""
+    from ray_tpu_torch.models.resnet import CONV_LEAVES, _map
+
+    names = {"scale": "GroupNorm scale", "bias": "GroupNorm bias",
+             "w": "head weight", "b": "head bias"}
+    return p18_leaves(_map(
+        lambda name, _: "conv" if name in CONV_LEAVES else names[name],
+        params))
+
+
+def p18_rel(grads, want):
+    """Each leaf's ||g - want|| / ||want||, and the whole gradient's."""
+    diff = [g.float().cpu() - w for g, w in zip(grads, want)]
+    leaf = [float(d.norm() / w.norm()) for d, w in zip(diff, want)]
+    whole = float(torch.cat([d.reshape(-1) for d in diff]).norm()
+                  / torch.cat([w.reshape(-1) for w in want]).norm())
+    return leaf, whole
+
+
+def phase18(seed):
+    from ray_tpu_torch.models.resnet import PRESETS, forward, init_params
+
+    print("phase 18: ResNet, resnet18 on 32 x 32 synthetic images, "
+          "resnet50's forward at 224 x 224")
+    t0 = time.perf_counter()
+    cfg = PRESETS["resnet18"]
+    params = init_params(torch.Generator("cuda").manual_seed(seed), cfg,
+                         "cuda")
+    host = p18_synthetic(P18_BATCH, P18_HW, seed=seed)
+    batch = {k: v.cuda() for k, v in host.items()}
+    loss, grads, _ = p18_step(params, batch, cfg)
+    cpu_params = p18_map(params, lambda t: t.detach().cpu())
+    t1 = time.perf_counter()
+    want_loss, want, _ = p18_step(
+        cpu_params, host, dataclasses.replace(cfg, dtype=torch.float32))
+    t2 = time.perf_counter()
+    cpu_loss, cpu_grads, _ = p18_step(cpu_params, host, cfg)
+    cpu_s = (t2 - t1, time.perf_counter() - t2)
+    loss, want_loss = float(loss.detach()), float(want_loss.detach())
+    loss_rel = abs(loss - want_loss) / abs(want_loss)
+    cpu_loss_rel = (abs(float(cpu_loss.detach()) - want_loss)
+                    / abs(want_loss))
+    leaf_rel, grad_rel = p18_rel(grads, want)
+    cpu_leaf_rel, cpu_grad_rel = p18_rel(cpu_grads, want)
+    classes = p18_classes(params)
+    limits = [P18_LEAF_K * r for r in cpu_leaf_rel]
+    over = [(i, classes[i], leaf_rel[i], limits[i])
+            for i in range(len(limits)) if leaf_rel[i] > limits[i]]
+    ratio = [r / c for r, c in zip(leaf_rel, cpu_leaf_rel)]
+    first_s = time.perf_counter() - t0
+    print(f"  18 resnet18 ({cfg.num_params() / 1e6:.2f} M parameters) B="
+          f"{P18_BATCH} bf16 convolutions, first step against fp32 on the "
+          f"CPU ({cpu_s[0]:.2f} s; the CPU's bf16 step {cpu_s[1]:.2f} s): "
+          f"loss {loss:.6f} vs {want_loss:.6f} (relative {loss_rel:.3e}, "
+          f"limit {P18_LOSS_REL:g}; the CPU's bf16 {cpu_loss_rel:.3e}), "
+          f"gradient {grad_rel:.3e} of its norm (limit {P18_GRAD_REL:g}; "
+          f"the CPU's bf16 {cpu_grad_rel:.3e})")
+    for c in sorted(set(classes)):
+        idx = [i for i, k in enumerate(classes) if k == c]
+        worst = max(idx, key=lambda i: ratio[i])
+        print(f"  18 {c} ({len(idx)} leaves): card max "
+              f"{max(leaf_rel[i] for i in idx):.3e}, the CPU's bf16 max "
+              f"{max(cpu_leaf_rel[i] for i in idx):.3e}; card / CPU "
+              f"{min(ratio[i] for i in idx):.3f}-{ratio[worst]:.3f} (limit "
+              f"{P18_LEAF_K:g}; the highest leaf {worst})")
+    check(loss_rel <= P18_LOSS_REL, f"18: bf16 loss {loss_rel:.3e} off")
+    check(grad_rel <= P18_GRAD_REL, f"18: bf16 gradients {grad_rel:.3e} off")
+    check(not over, f"18: bf16 gradient leaves past {P18_LEAF_K:g} x the "
+          f"CPU's bf16 reading (index, class, reading, limit): {over}")
+
+    leaves = [t.requires_grad_(True) for t in p18_leaves(params)]
+    opt = torch.optim.Adam(leaves, lr=P18_LR)
+    from ray_tpu_torch.models.resnet import loss_fn
+
+    losses, marks = [], {}
+    for i in range(P18_STEPS + 1):
+        if i in P18_TIMED:
+            sync()
+            marks[i] = time.perf_counter()
+        if i == P18_STEPS:
+            break
+        opt.zero_grad(set_to_none=True)
+        step_loss, aux = loss_fn(params, batch, cfg)
+        step_loss.backward()
+        opt.step()
+        losses.append(step_loss.detach())
+    losses = [float(x) for x in losses]
+    lo, hi = P18_TIMED
+    step_ms = (marks[hi] - marks[lo]) / (hi - lo) * 1e3
+    images_s = P18_BATCH / step_ms * 1e3
+    print(f"  18 {P18_STEPS} Adam steps (lr {P18_LR:g}): loss {losses[0]:.4f}"
+          f" -> {losses[-1]:.4f}, accuracy {float(aux['accuracy']):.3f}; "
+          f"steps {lo}-{hi}: {step_ms:.2f} ms per step, {images_s:.1f} "
+          f"images/s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"[{card_line()}]")
+    check(all(math.isfinite(x) for x in losses), "18: a loss is not finite")
+    check(losses[-1] < losses[0] * 0.5,
+          f"18: resnet18 did not learn: {losses[0]} -> {losses[-1]}")
+    del params, leaves, opt, grads, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    r50 = PRESETS["resnet50"]
+    params = init_params(torch.Generator("cuda").manual_seed(seed), r50,
+                         "cuda")
+    images = torch.randn((8, 224, 224, 3),
+                         generator=torch.Generator("cuda").manual_seed(seed),
+                         device="cuda")
+    with torch.no_grad():
+        forward(params, images, r50)
+        sync()
+        t1 = time.perf_counter()
+        logits = forward(params, images, r50)
+        sync()
+        r50_ms = (time.perf_counter() - t1) * 1e3
+    print(f"  18 resnet50 ({r50.num_params() / 1e6:.2f} M parameters) "
+          f"forward, B=8 at 224 x 224: logits {tuple(logits.shape)} "
+          f"{logits.dtype}, {r50_ms:.2f} ms (second call) [{card_line()}]")
+    check(tuple(logits.shape) == (8, 1000) and logits.dtype == torch.float32
+          and bool(torch.isfinite(logits).all()),
+          "18: resnet50's logits are not finite [8, 1000] fp32")
+    del params, images, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"loss_rel": loss_rel, "grad_rel": grad_rel,
+            "cpu_grad_rel": cpu_grad_rel, "leaf_ratio": max(ratio),
+            "leaf_rel": leaf_rel, "cpu_leaf_rel": cpu_leaf_rel,
+            "classes": classes, "cpu_s": cpu_s, "losses": losses,
+            "step_ms": step_ms, "images_s": images_s, "r50_ms": r50_ms,
+            "first_s": first_s, "s": time.perf_counter() - t0}
+
+
+# ------------------------------------------------------------ phase 19
+# The port's own cluster: started by its CLI, a job serving mini on the
+# card through the job API, then stopped.
+P19_DIR = os.path.join(OUT_DIR, "p19")
+P19_JOB = """\
+import json, os, sys
+sys.path.insert(0, {repo!r})
+import ray_tpu_torch as rt
+
+spec = json.load(open({spec!r}))
+rt.init(address=os.environ["RAY_TPU_ADDRESS"])
+
+
+@rt.remote(num_gpus=1)
+def serve_mini(spec):
+    import torch
+    from ray_tpu_torch.llm.engine import LLMEngine, SamplingParams
+    from ray_tpu_torch.models.llama import PRESETS, init_params
+    from ray_tpu_torch.ops.paged_attention import paged_attention
+
+    cfg = PRESETS["mini"]
+    params = init_params(cfg, spec["seed"], device="cuda", dtype=cfg.dtype)
+    eng = LLMEngine(cfg, max_batch=8, max_seq=2048, params=params,
+                    kv="paged", page_size=64, seed=spec["seed"],
+                    device="cuda")
+    sampling = SamplingParams(max_tokens=spec["max_tokens"])
+    order = {{eng.add_request(p, sampling): i
+              for i, p in enumerate(spec["prompts"])}}
+    outs = [None] * len(order)
+    paged_attention.launches = 0
+    while eng.has_unfinished():
+        for fin in eng.step():
+            outs[order[fin["request_id"]]] = fin["tokens"]
+    torch.cuda.synchronize()
+    return {{"streams": outs, "p1": paged_attention.launches,
+             "steps": eng.stats()["decode_steps"], "pid": os.getpid()}}
+
+
+out = rt.get(serve_mini.remote(spec))
+json.dump(out, open({result!r}, "w"))
+print("job served", len(out["streams"]), "streams,", out["p1"], "P1 launches")
+"""
+
+
+def p19_cli(*args, timeout=120):
+    """``python -m ray_tpu_torch.scripts <args>`` from the repo root."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch.scripts", *args],
+        capture_output=True, text=True, timeout=timeout)
+    check(proc.returncode == 0,
+          f"19: scripts {' '.join(args)} exited {proc.returncode}: "
+          f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    return proc.stdout
+
+
+def p19_daemons(session):
+    """Live processes running the port's daemon on ``session``."""
+    mine = []
+    for cmdline in glob.glob("/proc/[0-9]*/cmdline"):
+        try:
+            with open(cmdline, "rb") as f:
+                argv = f.read().split(b"\0")
+        except OSError:
+            continue
+        if b"ray_tpu_torch.daemon" in argv and session.encode() in argv:
+            mine.append(int(cmdline.split("/")[2]))
+    return mine
+
+
+def p19_dashboard(addr, session, timeout=120):
+    """`scripts dashboard --port 0` on the cluster, in a process of its own
+    (its output in P19_DIR): (the process, its URL)."""
+    log = os.path.join(P19_DIR, "dashboard.log")
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "ray_tpu_torch.scripts", "--address",
+             addr, "--session-dir", session, "dashboard", "--port", "0"],
+            stdout=f, stderr=subprocess.STDOUT)
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline and proc.poll() is None:
+        for line in open(log):
+            if line.startswith("dashboard at "):
+                return proc, line.split()[2]
+        time.sleep(0.2)
+    proc.kill()
+    check(False, f"19: the dashboard did not come up: "
+          f"{open(log).read()[-2000:]}")
+
+
+def p19_rest(url, route, body=None, text=False):
+    """One request to the dashboard: a POST of ``body`` as JSON, else a
+    GET; the reply parsed as JSON unless ``text``."""
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    with urllib.request.urlopen(urllib.request.Request(
+            url + route, data=data, method="GET" if data is None else
+            "POST"), timeout=60) as reply:
+        out = reply.read().decode()
+    return out if text else json.loads(out)
+
+
+def phase19(seed, m2):
+    """`start --head` with the card detected, a job submitted through the
+    dashboard's REST that serves phase 2's mini prompts from a num_gpus=1
+    task, the CLI's reads, `stop`. It needs no runtime in this process,
+    so it runs while phase 17c's fit does."""
+    import ast
+
+    print("phase 19: the port's cluster from its CLI, a job serving mini")
+    t0 = time.perf_counter()
+    session = os.path.abspath(os.path.join(P19_DIR, "session"))
+    shutil.rmtree(P19_DIR, ignore_errors=True)
+    os.makedirs(P19_DIR, exist_ok=True)
+    out = p19_cli("start", "--head", "--port", "0", "--session-dir",
+                  session)
+    addr = open(os.path.join(session, "head.addr")).read().strip()
+    pids = p19_daemons(session)
+    check(len(pids) == 1, f"19: daemons after start: {pids}")
+    status = p19_cli("--address", addr, "--session-dir", session, "status")
+    totals = [ast.literal_eval(line.split("total=")[1].split("  available")[0])
+              for line in status.splitlines() if "total=" in line]
+    start_s = time.perf_counter() - t0
+    print(f"  19 start --head: {out.splitlines()[0]}; status: "
+          f"{len(totals)} node, resources {totals} ({start_s:.2f} s from "
+          f"start to a registered node)")
+    check(len(totals) == 1 and totals[0].get("GPU") == 1.0,
+          f"19: the node's resources {totals}, not one GPU")
+
+    spec = os.path.abspath(os.path.join(P19_DIR, "spec.json"))
+    result = os.path.abspath(os.path.join(P19_DIR, "result.json"))
+    script = os.path.abspath(os.path.join(P19_DIR, "job_mini.py"))
+    with open(spec, "w") as f:
+        json.dump({"seed": seed, "prompts": m2["prompts"],
+                   "max_tokens": len(m2["outs"][0])}, f)
+    with open(script, "w") as f:
+        f.write(P19_JOB.format(repo=os.path.abspath("."), spec=spec,
+                               result=result))
+    dash, url = p19_dashboard(addr, session)
+    try:
+        t1 = time.perf_counter()
+        job_id = p19_rest(url, "/api/jobs", {
+            "entrypoint": f"{sys.executable} {script}"})["job_id"]
+        deadline = time.monotonic() + 600
+        while True:
+            status = p19_rest(url, f"/api/jobs/{job_id}")["status"]
+            if status in ("SUCCEEDED", "FAILED", "STOPPED") \
+                    or time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+        job_s = time.perf_counter() - t1
+        logs = p19_rest(url, f"/api/jobs/{job_id}/logs", text=True)
+        listed = [j["job_id"] for j in p19_rest(url, "/api/jobs")]
+    finally:
+        dash.terminate()
+        dash.wait(timeout=30)
+    check(status == "SUCCEEDED",
+          f"19: job {job_id} ended {status}; its log:\n{logs[-3000:]}")
+    check(job_id in listed, f"19: {job_id} not in /api/jobs {listed}")
+    got = json.load(open(result))
+    same = sum(a == b for a, b in zip(got["streams"], m2["outs"]))
+    print(f"  19 job {job_id}: SUCCEEDED {job_s:.2f} s after submit; "
+          f"{same} of {len(m2['outs'])} streams equal phase 2's mini "
+          f"streams; the task's P1 launches {got['p1']} = 12 x "
+          f"{got['steps']} decode steps [{card_line()}]")
+    check(same == len(m2["outs"]),
+          f"19: {same} of {len(m2['outs'])} job streams equal phase 2's")
+    check(got["p1"] > 0 and got["p1"] == 12 * got["steps"],
+          f"19: P1 launches {got['p1']} for {got['steps']} decode steps")
+
+    jobs = json.loads(p19_cli("--address", addr, "--session-dir", session,
+                              "list", "jobs"))
+    head = json.loads(p19_cli("--address", addr, "--session-dir", session,
+                              "head", "--json"))
+    mem = json.loads(p19_cli("--address", addr, "--session-dir", session,
+                             "mem", "--json"))
+    check(any(j["job_id"] == job_id and j["status"] == "SUCCEEDED"
+              for j in jobs), f"19: list jobs {jobs}")
+    check(head.get("nodes", 0) >= 1, f"19: head --json {head}")
+    check("nodes" in mem, f"19: mem --json {mem}")
+    p19_cli("stop", "--session-dir", session)
+    deadline = time.monotonic() + 15
+    while (p19_daemons(session) or any(pid_alive(p) for p in pids)) \
+            and time.monotonic() < deadline:
+        time.sleep(0.2)
+    left = p19_daemons(session) + [p for p in pids if pid_alive(p)]
+    check(not left, f"19: daemons alive after stop: {left}")
+    total_s = time.perf_counter() - t0
+    print(f"  19 list, head --json, mem --json exited 0; stop left no "
+          f"daemon; phase 19 {total_s:.1f} s")
+    return {"start_s": start_s, "job_s": job_s, "p1": got["p1"],
+            "steps": got["steps"], "same": same, "s": total_s}
 
 
 def _leaves(tree):
@@ -5533,8 +6091,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     p16 = phase16(args.seed, p12)
     lap("phase 16")
-    p17 = phase17()
-    lap("phase 17")
+    p18 = phase18(args.seed)
+    lap("phase 18")
+    p17 = phase17(during=lambda: phase19(args.seed, m2))
+    p19 = p17["c"]["during"]
+    lap("phase 17, with phase 19 during 17c")
     prof = p4["profile"]
     print(f"train: {p4['tokens_per_s']:.1f} tokens/s, "
           f"{p4['peak_share']:.2%} of dense bf16 peak, step "
@@ -5619,11 +6180,12 @@ def main() -> int:
           f"{a12['logical_bytes'] / 1e9:.3f} GB through AsyncCheckpointer, "
           f"save() stalls {a12['stall_s'][0]:.3f} s (first, host buffers "
           f"allocated) / {a12['stall_s'][1]:.3f} s (phase 7's torch.save "
-          f"{p7['save_s']:.2f} s), persist {a12['persist_s']:.2f} s, "
+          f"of {p7['ckpt_bytes'] / 1e9:.3f} GB {p7['save_s']:.2f} s), "
+          f"persist {a12['persist_s']:.2f} s, "
           f"written {a12['written_bytes'] / 1e9:.3f} GB after a step "
           f"(dedup {a12['dedup']:.3f}), restore {a12['restore_s']:.2f} s; "
-          f"TorchTrainer {b12['tokens_per_s']:.1f} tokens/s (phase 4 "
-          f"{p4['tokens_per_s']:.1f}), controller {b12['overhead_s']:.2f} s "
+          f"TorchTrainer at {P12_LAYERS} layers {b12['tokens_per_s']:.1f} "
+          f"tokens/s (phase 4 at 24 {p4['tokens_per_s']:.1f}), controller {b12['overhead_s']:.2f} s "
           f"per step, resumed losses within {b12['max_rel']:.3e}; two "
           f"workers fsdp=2 losses {c12['losses']} (one process "
           f"{c12['single']}) [{card}]")
@@ -5704,6 +6266,29 @@ def main() -> int:
           f" ms, sample {b17['sample_ms_median']:.2f} ms, "
           f"{b17['env_steps_per_s']:.1f} env steps/s; phase 17 "
           f"{p17['s']:.1f} s [{card}]")
+    c17 = p17["c"]
+    print(f"phase 17c, the composed pp x ep x fsdp loop through "
+          f"TorchTrainer: 4 workers at 0.25 GPU fit in {c17['fit_s']:.2f} s, "
+          f"loss {c17['loss']:.8f}, within {c17['worst_rel']:.3e} of the "
+          f"plain CPU steps, exposed comm {c17['comm_exposed_s']:.4f} s "
+          f"[{card}]")
+    print(f"phase 18, ResNet: resnet18 B={P18_BATCH} at {P18_HW} x {P18_HW}, "
+          f"bf16 convolutions: {p18['step_ms']:.2f} ms per Adam step, "
+          f"{p18['images_s']:.1f} images/s (steps {P18_TIMED[0]}-"
+          f"{P18_TIMED[1]}), loss {p18['losses'][0]:.4f} -> "
+          f"{p18['losses'][-1]:.4f}; first step against fp32: loss "
+          f"{p18['loss_rel']:.3e}, gradient {p18['grad_rel']:.3e} (the "
+          f"CPU's bf16 {p18['cpu_grad_rel']:.3e}), each leaf at most "
+          f"{p18['leaf_ratio']:.3f} times the CPU's bf16 reading (limit "
+          f"{P18_LEAF_K:g});"
+          f" resnet50 forward B=8 at 224 x 224 {p18['r50_ms']:.2f} ms; phase "
+          f"18 {p18['s']:.1f} s [{card}]")
+    print(f"phase 19, the CLI cluster: start --head to a registered GPU node "
+          f"{p19['start_s']:.2f} s, the mini job SUCCEEDED "
+          f"{p19['job_s']:.2f} s after submit, {p19['same']} of 8 streams "
+          f"equal phase 2's, P1 {p19['p1']} launches in the job's task "
+          f"(= 12 x {p19['steps']}; added to paged_attention_d64's count); "
+          f"phase 19 {p19['s']:.1f} s [{card}]")
     rows.update({k: tp_rows[k] for k in TP_MAIN_ROWS})
     rows.update(p9["pipeline"]["rows"])
     # Phase 16's trials run the bench step at phase 4's shape: the same
@@ -5715,7 +6300,7 @@ def main() -> int:
     # One row per kernel and main-path shape: the forward kernel runs in
     # the dense prefill (phase 3) and in training (phase 4).
     launches = {"paged_attention": p2["launches"],
-                "paged_attention_d64": m2["launches"],
+                "paged_attention_d64": m2["launches"] + p19["p1"],
                 "paged_attention_p16": p2_pages[16]["launches"],
                 "paged_attention_p32": p2_pages[32]["launches"],
                 "paged_attention_p4": p2_pages[4]["launches"],

@@ -1,4 +1,4 @@
-"""Models of the port."""
+"""Models of the port: the Llama-style decoder, MoE, and ResNet."""
 
 from ray_tpu_torch.models.llama import (
     PRESETS,
@@ -15,7 +15,10 @@ from ray_tpu_torch.models.moe import (
     moe_ffn,
     moe_forward,
 )
+from ray_tpu_torch.models.resnet import PRESETS as RESNET_PRESETS
+from ray_tpu_torch.models.resnet import ResNetConfig
 
-__all__ = ["MOE_PRESETS", "PRESETS", "LlamaConfig", "MoEConfig", "forward",
-           "forward_with_aux", "init_moe_params", "init_params", "moe_ffn",
-           "moe_forward", "params_from_jax"]
+__all__ = ["MOE_PRESETS", "PRESETS", "RESNET_PRESETS", "LlamaConfig",
+           "MoEConfig", "ResNetConfig", "forward", "forward_with_aux",
+           "init_moe_params", "init_params", "moe_ffn", "moe_forward",
+           "params_from_jax"]

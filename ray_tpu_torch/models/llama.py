@@ -292,14 +292,13 @@ def layer_params(params: Params, i: int) -> Params:
 
 def attention_split(cfg: LlamaConfig, mesh) -> bool:
     """Whether each tp rank attends its own query heads with their KV
-    heads (``n_kv_heads % tp == 0``: the heads, the KV cache and the
-    paged pool split over tp) or all ranks attend every head (the
-    projections gathered whole, each rank keeping its heads' share of the
-    output for ``wo``). Either way the query heads must split over tp."""
+    heads (both head counts split over tp: the heads, the KV cache and
+    the paged pool split over tp) or all ranks attend every head (the
+    projections gathered whole, each rank keeping its share of the
+    output's ``n_heads * head_dim`` columns for its rows of ``wo``; a
+    share may end inside a head, as mini's 12 heads do at tp = 8)."""
     tp = axis_size(mesh, "tp")
-    if cfg.n_heads % tp:
-        raise ValueError(f"n_heads={cfg.n_heads} does not split over tp={tp}")
-    return cfg.n_kv_heads % tp == 0
+    return cfg.n_heads % tp == 0 and cfg.n_kv_heads % tp == 0
 
 
 def kv_heads_per_rank(cfg: LlamaConfig, mesh) -> int:
@@ -533,7 +532,8 @@ def attn_out(attn: torch.Tensor, p: Params, cfg: LlamaConfig):
     """The attention output [B, S, H, Dh] through ``wo``: under tp each
     rank multiplies its heads by its rows of ``wo`` and the partial sums
     are summed over tp (where every rank attended every head, it first
-    keeps its own heads)."""
+    keeps its share of the flattened heads' columns, the rows of ``wo``
+    it holds)."""
     b, s = attn.shape[:2]
     o = attn.reshape(b, s, -1)
     mesh = active_mesh()

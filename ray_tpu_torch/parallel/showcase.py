@@ -5,11 +5,9 @@ A minimal but complete composition of the three mechanisms a large run
 stacks: GPipe pipeline stages (pp) whose bodies are expert-parallel blocks
 (ep: each rank runs its own experts, the combine summed over ep) with a
 ZeRO-3-sharded dense weight (fsdp: gathered at use), the batch cut over
-fsdp. The reference also drives it through its trainer's session and
-gradient bucketer (``composed_trainer_loop``); that loop is not ported
-yet (ROADMAP.md lists ``parallel/showcase.py``'s ``composed_trainer_loop``
-as open), though the trainer, the session and the bucketer it needs now
-are.
+fsdp. ``composed_trainer_loop`` drives it through the trainer's session
+and gradient bucketer, as the reference drives it through its
+JaxTrainer.
 """
 
 from __future__ import annotations
@@ -109,3 +107,101 @@ def composed_value_and_grad(params, mesh):
     )
     grads = torch.autograd.grad(loss, leaves)
     return loss.detach(), dict(zip(names, grads))
+
+
+def composed_trainer_loop(config):
+    """train_loop_per_worker for TorchTrainer: the composed {pp: 2, ep: 2,
+    fsdp: N} mesh over the trainer's process group (start the trainer
+    with ``ScalingConfig(distributed=True)``; ``dist_backend="gloo"`` for
+    CPU workers or several workers on one card), and real optimizer steps
+    of the composed program, reporting metrics and a rank-0 checkpoint
+    (``params.npz``) through the Train session.
+
+    The reference's single worker holds the whole mesh on its devices; a
+    mesh here is one rank per process, so ``num_workers`` is the mesh's
+    4 N ranks. Each step is a ``train.step_span`` with compute and
+    collective phases: the loss mean over every worker through a
+    recorded collective (what the head's goodput ledger attributes as
+    comm), and with ``ScalingConfig(grad_overlap=True)`` the bucketed
+    async gradient sync over every worker, issued in the compute phase
+    and joined before the update, then divided by the world size, as
+    the reference's is. The gradients are already whole on every rank of
+    the mesh, so that mean leaves them as they are (the reference's
+    single worker averages over itself); its buckets, the
+    ``grad_buckets`` metric, are the same.
+
+    ``config``: ``fsdp`` (N), ``steps`` (default 2), ``device`` (default
+    "cuda"), and optionally ``params``, the starting parameters as numpy
+    arrays (:func:`composed_params_from_jax`; default: drawn from seed 7
+    on the device)."""
+    import os
+    import tempfile
+
+    import ray_tpu_torch.train as train
+    from ray_tpu_torch import collective as cols
+    from ray_tpu_torch.parallel.mesh import make_mesh
+
+    ctx = train.get_context()
+    if not torch.distributed.is_initialized():
+        raise RuntimeError(
+            "composed_trainer_loop builds its mesh on the trainer's process "
+            "group: start TorchTrainer with ScalingConfig(distributed=True)")
+    dev = resolve_device(config.get("device", "cuda"))
+    fsdp, world, rank = int(config["fsdp"]), ctx.get_world_size(), \
+        ctx.get_world_rank()
+    if world != 4 * fsdp:
+        raise ValueError(f"composed_trainer_loop: {world} workers for the "
+                         f"{4 * fsdp} ranks of {{pp: 2, ep: 2, fsdp: {fsdp}}}")
+    mesh = make_mesh({"pp": 2, "ep": 2, "fsdp": fsdp}, device_type=dev.type)
+    if "params" in config:
+        params = composed_params_from_jax(config["params"], dev)
+    else:
+        params = make_composed_params(
+            torch.Generator(dev).manual_seed(7), dev)
+    # Attempt-scoped group name: an elastic retry must not rendezvous
+    # with a dead attempt's KV keys.
+    gname = f"composed_sync{ctx.attempt}"
+    cols.init_collective_group(world, rank, backend="cpu", group_name=gname)
+    overlap = bool(train.grad_sync_opts().get("overlap"))
+    n_buckets = 0
+    try:
+        for step in range(int(config.get("steps", 2))):
+            with train.step_span() as sp:
+                pending = None
+                with sp.phase("compute"):
+                    loss, grads = composed_value_and_grad(params, mesh)
+                    if overlap:
+                        bucketer = train.grad_bucketer(group_name=gname)
+                        pending = bucketer.sync_async(grads)
+                        # In-flight buckets overlap this remaining
+                        # compute (the gradient norm: one host read).
+                        sq = sum(torch.sum(g * g) for g in grads.values())
+                        gnorm = float(torch.sqrt(sq))
+                with sp.phase("collective"):
+                    mean_loss = cols.allreduce(
+                        np.asarray([float(loss)], np.float32),
+                        group_name=gname,
+                    )[0] / max(1, world)
+                    if pending is not None:
+                        # Join tail: only what did not finish during
+                        # compute shows up as exposed comm.
+                        synced = bucketer.unflatten(grads, pending.wait())
+                        grads = {k: v / world for k, v in synced.items()}
+                        n_buckets = len(pending.buckets)
+                with sp.phase("compute"):
+                    params = {k: p - 0.1 * grads[k]
+                              for k, p in params.items()}
+            ckpt = None
+            if rank == 0:
+                ckpt = tempfile.mkdtemp(prefix="composed_ck_")
+                np.savez(os.path.join(ckpt, "params.npz"),
+                         **{k: v.detach().cpu().numpy()
+                            for k, v in params.items()})
+            metrics = {"loss": float(mean_loss), "step": step,
+                       "mesh": {"pp": 2, "ep": 2, "fsdp": fsdp}}
+            if overlap:
+                metrics["grad_buckets"] = n_buckets
+                metrics["grad_norm"] = gnorm
+            train.report(metrics, checkpoint=ckpt)
+    finally:
+        cols.destroy_collective_group(gname)

@@ -39,7 +39,7 @@ class AlgorithmConfig:
     gamma: float = 0.99
     hidden: tuple = (64, 64)
     seed: int = 0
-    mesh: Any = None  # a DeviceMesh with dp == 1, or None (see learner.py)
+    mesh: Any = None  # a DeviceMesh (its dp axis: see learner.py), or None
     # env-to-module ConnectorPipeline (rl/connectors.py); every runner
     # gets a copy, running stats sync through the group.
     connectors: Any = None

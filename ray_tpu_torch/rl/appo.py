@@ -23,6 +23,7 @@ from ray_tpu_torch.rl.algorithm import make_adam
 from ray_tpu_torch.rl.impala import (
     IMPALA,
     IMPALAConfig,
+    ROLLOUT_AXES,
     _normalized,
     vtrace_targets,
 )
@@ -42,10 +43,12 @@ def appo_loss(
     vf_coeff,
     ent_coeff,
     kl_coeff,
+    dp_mean=None,
 ):
     """Clipped surrogate on V-trace advantages; targets and the KL
     anchor come from the TARGET network (reference: APPOTorchLearner
-    compute_loss_for_module — old_target_policy drives v-trace)."""
+    compute_loss_for_module — old_target_policy drives v-trace).
+    ``dp_mean``: see impala's ``_normalized``."""
     T, N = batch["actions"].shape
     obs = batch["obs"].reshape(T * N, -1)
     out = module.forward(params, obs)
@@ -75,7 +78,7 @@ def appo_loss(
             tgt_values, last_value, batch["rewards"], discounts, rhos,
             rho_clip, c_clip,
         )
-        pg_adv = _normalized(pg_adv)
+        pg_adv = _normalized(pg_adv, dp_mean)
 
     # PPO clipped surrogate: the ONLINE policy's ratio vs behavior.
     ratio = torch.exp(logp - batch["logp"])
@@ -139,12 +142,12 @@ class APPO(IMPALA):
             return appo_loss(
                 params, module, batch, target_params, cfg.clip_eps,
                 cfg.gamma, cfg.rho_clip, cfg.c_clip, cfg.vf_coeff,
-                cfg.ent_coeff, cfg.kl_coeff,
+                cfg.ent_coeff, cfg.kl_coeff, dp_mean=self.learner.dp_mean,
             )
 
         return Learner(
             self.module, loss, make_adam(cfg.lr), mesh=cfg.mesh,
-            seed=cfg.seed, device=cfg.device,
+            seed=cfg.seed, device=cfg.device, batch_axes=ROLLOUT_AXES,
         )
 
     def _extra_update_args(self) -> tuple:

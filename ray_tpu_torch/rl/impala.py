@@ -43,14 +43,30 @@ def vtrace_targets(values, last_value, rewards, discounts, rhos,
     return vs, pg_adv
 
 
-def _normalized(x):
-    return (x - x.mean()) / (x.std(correction=0) + 1e-8)
+# A rollout's row axis under a dp learner (rl/learner.py): the env
+# columns N of its [T, N] leaves, so each rank runs whole v-trace
+# recursions and bootstraps from its own columns' next_obs [N, ...].
+ROLLOUT_AXES = {"obs": 1, "actions": 1, "rewards": 1, "dones": 1,
+                "logp": 1, "next_obs": 0}
+
+
+def _normalized(x, dp_mean=None):
+    """Advantages normalised by the whole batch's mean and population
+    std; ``dp_mean`` (a dp learner's ``Learner.dp_mean``) takes both
+    over its ranks' equal shards."""
+    if dp_mean is None:
+        return (x - x.mean()) / (x.std(correction=0) + 1e-8)
+    mean = dp_mean(x.mean())
+    var = dp_mean(((x - mean) ** 2).mean())
+    return (x - mean) / (var.sqrt() + 1e-8)
 
 
 def vtrace_loss(
-    params, module, batch, gamma, rho_clip, c_clip, vf_coeff, ent_coeff
+    params, module, batch, gamma, rho_clip, c_clip, vf_coeff, ent_coeff,
+    dp_mean=None,
 ):
-    """V-trace targets + policy gradient on [T, N] rollouts."""
+    """V-trace targets + policy gradient on [T, N] rollouts (``dp_mean``:
+    see ``_normalized``)."""
     T, N = batch["actions"].shape
     obs = batch["obs"].reshape(T * N, -1)
     out = module.forward(params, obs)
@@ -77,7 +93,7 @@ def vtrace_loss(
     # Normalize advantages per batch (smooths the sparse-reward, small-
     # batch regime; the reference's IMPALA exposes the same switch as
     # _separate_vf_optimizer-era configs do for PPO).
-    pg_adv = _normalized(pg_adv)
+    pg_adv = _normalized(pg_adv, dp_mean)
     pg_loss = -(pg_adv * logp).mean()
     vf_loss = 0.5 * ((vs - values) ** 2).mean()
     entropy = -(torch.exp(logp_all) * logp_all).sum(-1).mean()
@@ -118,11 +134,12 @@ class IMPALA(Algorithm):
             return vtrace_loss(
                 params, module, batch, cfg.gamma, cfg.rho_clip,
                 cfg.c_clip, cfg.vf_coeff, cfg.ent_coeff,
+                dp_mean=self.learner.dp_mean,
             )
 
         return Learner(
             self.module, loss, make_adam(cfg.lr), mesh=cfg.mesh,
-            seed=cfg.seed, device=cfg.device,
+            seed=cfg.seed, device=cfg.device, batch_axes=ROLLOUT_AXES,
         )
 
     # -- subclass hooks (APPO rides this loop; rl/appo.py) ---------------

@@ -7,8 +7,8 @@ The invariant under test everywhere: a dead or slow remote tier DEGRADES
 — it never hangs a save or a restore.
 
 The JAX package's remote-tier tests (tests/test_ckpt_remote_tier.py) on
-the port's runtime and checkpoint package; the push/pull CLI case is not
-here (``scripts`` is not ported).
+the port's runtime and checkpoint package, the push/pull CLI case on
+``ray_tpu_torch.scripts``.
 """
 
 import json
@@ -222,3 +222,41 @@ def test_restore_raises_typed_when_tier_down(cluster, tier_dir):
 
 
 # ------------------------------------------------------- push/pull CLI
+def test_ckpt_push_pull_cli(cluster, tmp_path, monkeypatch, capsys):
+    """`ckpt push` makes a checkpoint portable; after wiping the
+    in-cluster copies, `ckpt pull` re-seeds the store and restore works
+    as if the save had happened locally."""
+    import ray_tpu_torch.scripts as scripts
+
+    rt = core_api._runtime
+    rng = np.random.default_rng(21)
+    state = {"w": rng.random(400_000).astype(np.float32)}
+    cp = dc.AsyncCheckpointer(run="pp_run", replication=1)
+    cp.save(0, state)
+    cp.wait()
+
+    monkeypatch.setattr(scripts, "_connect", lambda *a, **k: None)
+    tier_root = str(tmp_path / "portable")
+    assert scripts.main(
+        ["ckpt", "push", "--run", "pp_run", "--tier", tier_root]
+    ) == 0
+    out = capsys.readouterr().out
+    assert "pp_run step 0" in out
+
+    man = _head_call("ckpt_manifest", run="pp_run")
+    store = ShardStore(rt.core.store)
+    for h in man["locations"]:
+        store.delete_chunk(h)
+
+    assert scripts.main(
+        ["ckpt", "pull", "--run", "pp_run", "--tier", tier_root, "--json"]
+    ) == 0
+    reply = json.loads(capsys.readouterr().out)
+    assert reply["ok"] and reply["inserted"] >= 1
+
+    out = dc.restore("pp_run", target=state)
+    np.testing.assert_array_equal(out["w"], state["w"])
+    # Missing run -> typed CLI failure, not a traceback.
+    assert scripts.main(
+        ["ckpt", "pull", "--run", "nope", "--tier", tier_root]
+    ) == 1

@@ -3,8 +3,8 @@ the port's runtime and checkpoint package: snapshot-offload saves,
 content-addressed dedup, commit-protocol atomicity, peer replication with
 head-driven repair (node death and drain evacuation), integrity and
 locations, and the checkpoint-dir naming. The same cases with torch
-leaves where the reference's were jax arrays; the CLI and dashboard case
-is not here (``scripts`` and ``dashboard`` are not ported).
+leaves where the reference's were jax arrays, and the CLI and dashboard
+case on ``ray_tpu_torch.scripts`` and ``ray_tpu_torch.dashboard``.
 """
 
 import logging
@@ -354,6 +354,36 @@ def test_restore_pulls_missing_chunks_from_peers(
 
 
 # ------------------------------------------------ CLI + dashboard
+def test_ckpt_cli_and_dashboard_surfacing(cluster, monkeypatch, capsys):
+    """`ray_tpu_torch.scripts ckpt ls/verify` and the dashboard's
+    /api/checkpoints both read the head's manifest table."""
+    import json as _json
+    import urllib.request
+
+    import ray_tpu_torch.scripts as scripts
+    from ray_tpu_torch.dashboard import start_dashboard
+
+    cp = dc.AsyncCheckpointer(run="surf_run", replication=1)
+    cp.save(0, {"w": np.arange(1000, dtype=np.float32)})
+    cp.wait()
+
+    monkeypatch.setattr(scripts, "_connect", lambda *a, **k: None)
+    assert scripts.main(["ckpt", "ls"]) == 0
+    out = capsys.readouterr().out
+    assert "surf_run step 0: complete" in out
+    assert scripts.main(["ckpt", "verify"]) == 0
+    out = capsys.readouterr().out
+    assert "surf_run step 0" in out and "0 lost" in out
+
+    dash = start_dashboard()
+    try:
+        data = _json.load(urllib.request.urlopen(
+            dash.url + "/api/checkpoints", timeout=10))
+        assert data["runs"]["surf_run"][0]["complete"]
+    finally:
+        dash.stop()
+
+
 def test_checkpoint_naming_unified(cluster, tmp_path):
     """One naming scheme (ckpt-*), one discovery helper, both writers:
     CheckpointManager and report() agree, and discovery still reads the

@@ -196,3 +196,62 @@ def test_actor_sample_reaches_the_head_ledger(cluster):
         time.sleep(0.2)
     assert row["used_bytes"] == rec["hbm"]["used_bytes"]
     ray_tpu_torch.kill(holder)
+
+
+def _feed_mem(rt, node, used, cap, ts, job=None, peak=None, by_kind=None):
+    rt.run(rt.core.head.call("add_task_events", events=[{
+        "task_id": f"span:mem-{node}-{ts}",
+        "name": "mem:sample",
+        "state": "SPAN",
+        "ts": ts,
+        "dur": 0.0,
+        "mem_node": node,
+        "mem_job": job,
+        "mem_used_bytes": used,
+        "mem_peak_bytes": peak if peak is not None else used,
+        "mem_capacity_bytes": cap,
+        "mem_host_rss_bytes": 123456,
+        "mem_by_kind": by_kind or {},
+    }]))
+
+
+def test_api_memory_schema_and_cli(cluster, capsys, monkeypatch):
+    """Dashboard /api/memory returns schema-complete JSON and
+    `ray_tpu_torch.scripts mem` renders the same ledger
+    (tests/test_memory_plane.py's case)."""
+    import urllib.request
+
+    from ray_tpu_torch import scripts
+    from ray_tpu_torch.dashboard import start_dashboard
+
+    rt = ray_tpu_torch.api._runtime
+    _feed_mem(rt, "nodeD:1", 3 << 30, 16 << 30, time.time(),
+              job="cli_job", by_kind={"params": 2 << 30})
+    dash = start_dashboard()
+    try:
+        with urllib.request.urlopen(dash.url + "/api/memory",
+                                    timeout=10) as r:
+            body = json.loads(r.read())
+    finally:
+        dash.stop()
+    assert "nodes" in body and "jobs" in body
+    required = {
+        "used_bytes", "peak_bytes", "capacity_bytes", "headroom_bytes",
+        "host_rss_bytes", "by_kind", "samples", "alert", "first_ts",
+        "last_ts",
+    }
+    for name, node in body["nodes"].items():
+        assert required <= set(node), (name, sorted(node))
+    assert "nodeD:1" in body["nodes"]
+    assert "cli_job" in body["jobs"]
+
+    monkeypatch.setattr(scripts, "_connect", lambda *a, **k: None)
+    rc = scripts.main(["mem"])
+    out = capsys.readouterr().out
+    assert rc == 0
+    assert "nodeD:1" in out and "used=" in out and "headroom=" in out
+    assert "by kind:" in out and "params=" in out
+    assert "job cli_job:" in out
+    rc = scripts.main(["mem", "--json"])
+    out = json.loads(capsys.readouterr().out)
+    assert rc == 0 and "nodeD:1" in out["nodes"]

@@ -142,7 +142,10 @@ def test_port_imports_neither_jax_nor_ray_tpu():
                  "impala.py", "learner.py", "module.py", "multi_agent.py",
                  "offline.py", "ppo.py", "replay.py", "sac.py"):
         assert REPO / "ray_tpu_torch" / "rl" / name in files
-    for name in ("train/profile.py", "_private/kernel_profile.py"):
+    for name in ("train/profile.py", "_private/kernel_profile.py",
+                 "models/resnet.py", "_private/tls_utils.py", "daemon.py",
+                 "job.py", "dashboard.py", "scripts.py",
+                 "autoscaler/__init__.py", "autoscaler/gcp.py"):
         assert REPO / "ray_tpu_torch" / name in files, name
     for name in ("api.py", "placement.py", "exceptions.py", "version.py",
                  "_native/shmstore.py", "_private/config.py",
@@ -182,7 +185,9 @@ def test_spawned_test_modules_import_no_jax_at_top_level():
     names = ("test_torch_parallel_train.py", "test_torch_parallel_engine.py",
              "test_torch_sequence_parallel.py", "test_torch_pipeline.py",
              "test_torch_showcase.py", "test_torch_multislice.py",
-             "test_torch_ckpt_manifest.py", "torch_spawn_util.py")
+             "test_torch_ckpt_manifest.py", "test_torch_resnet.py",
+             "test_torch_rl_dp.py", "test_torch_tp_heads.py",
+             "test_torch_showcase_loop.py", "torch_spawn_util.py")
     for name in names:
         tree = ast.parse((REPO / "tests" / name).read_text())
         for node in tree.body:

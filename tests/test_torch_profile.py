@@ -503,13 +503,22 @@ def test_regression_alert_off_on_off(cluster):
 
 
 def test_api_profile_and_capture_fanout(cluster):
-    """profile_stats serves the ledger's per-job record with the
+    """Dashboard /api/profile serves the ledger's per-job record with the
     reference's keys; profile_capture fans the request over the
-    collective channel and acks (the dashboard is not ported: the
-    reference reads the same record through /api/profile)."""
+    collective channel and acks."""
+    import urllib.request
+
+    from ray_tpu_torch.dashboard import start_dashboard
+
     rt = ray_tpu_torch.api._runtime
     _feed_profile(rt, "apijob", "sigAPI", BASE_SHARES, time.time())
-    body = state.profile_stats()
+    dash = start_dashboard()
+    try:
+        with urllib.request.urlopen(dash.url + "/api/profile",
+                                    timeout=10) as r:
+            body = json.loads(r.read())
+    finally:
+        dash.stop()
     assert "jobs" in body and "fingerprints" in body
     rec = body["jobs"]["apijob"]
     for key in ("sig", "shares", "step_s", "steps", "dominant_gap",
@@ -518,6 +527,86 @@ def test_api_profile_and_capture_fanout(cluster):
     assert rec["dominant_gap"] == "hbm_bound"
     reply = state.profile_capture(steps=2)
     assert reply["ok"] is True and reply["steps"] == 2
+
+
+def test_cli_profile_schema(monkeypatch, capsys):
+    """The exact `ray_tpu_torch.scripts profile` output path."""
+    from ray_tpu_torch import scripts
+
+    monkeypatch.setattr(scripts, "_connect", lambda *a, **k: None)
+    stats = {
+        "jobs": {
+            "jobZ": {
+                "sig": "sigZ", "shares": dict(BASE_SHARES),
+                "step_s": 0.0213, "steps": 3,
+                "dominant_gap": "hbm_bound",
+                "drift": {"hbm_bound": -0.75}, "alert": True,
+                "path": "/tmp/capture", "ts": 1.0,
+            },
+        },
+        "fingerprints": {"sigZ": {"job": "jobZ"}},
+    }
+    monkeypatch.setattr(state, "profile_stats", lambda: stats)
+    assert scripts.main(["profile"]) == 0
+    out = capsys.readouterr().out
+    assert "jobZ" in out and "sig=sigZ" in out and "ALERT" in out
+    assert "step=21.3ms" in out
+    assert "compute_floor=0.300" in out
+    assert "dominant_gap: hbm_bound" in out
+    assert "drift vs fingerprint" in out
+
+    assert scripts.main(["profile", "--json"]) == 0
+    body = json.loads(capsys.readouterr().out)
+    assert body["jobs"]["jobZ"]["dominant_gap"] == "hbm_bound"
+
+    monkeypatch.setattr(
+        state, "profile_capture", lambda steps=None: {
+            "ok": True, "steps": steps
+        }
+    )
+    assert scripts.main(["profile", "--capture", "--steps", "4"]) == 0
+    assert "capture requested (steps=4)" in capsys.readouterr().out
+
+    monkeypatch.setattr(state, "profile_stats", lambda: {"jobs": {}})
+    assert scripts.main(["profile"]) == 0
+    assert "no profile captures" in capsys.readouterr().out
+
+
+def test_cli_goodput_decomposition_columns(monkeypatch, capsys):
+    """`ray_tpu_torch.scripts goodput` prints the in-program decomposition
+    next to the exposure ratios."""
+    from ray_tpu_torch import scripts
+
+    monkeypatch.setattr(scripts, "_connect", lambda *a, **k: None)
+    job = {
+        "goodput": 0.91, "steps": 120, "attempts": 1, "mfu": 0.42,
+        "productive_s": 100.0, "stall_s": 5.0, "restart_lost_s": 0.0,
+        "comm_exposed_s": 2.0, "comm_overlapped_s": 8.0,
+        "comm_exposed_ratio": 0.2,
+        "profile": {
+            "shares": dict(BASE_SHARES), "dominant_gap": "hbm_bound",
+            "alert": True, "sig": "sigG", "step_s": 0.02, "steps": 3,
+            "drift": {}, "path": "", "ts": 0.0,
+        },
+    }
+    monkeypatch.setattr(
+        state, "train_stats", lambda: {"jobs": {"gjob": job}}
+    )
+    assert scripts.main(["goodput"]) == 0
+    out = capsys.readouterr().out
+    assert "in_program:" in out
+    assert "hbm_bound=0.400" in out
+    assert "dominant_gap=hbm_bound" in out
+    assert "ALERT" in out
+    # Without a capture the goodput rollup prints exactly as before.
+    monkeypatch.setattr(
+        state, "train_stats",
+        lambda: {"jobs": {"gjob": {
+            k: v for k, v in job.items() if k != "profile"
+        }}},
+    )
+    assert scripts.main(["goodput"]) == 0
+    assert "in_program:" not in capsys.readouterr().out
 
 
 def _capture_loop_factory():

@@ -261,16 +261,33 @@ def test_learner_three_updates(grad_clip):
     assert tl.optimizer.init(tl.params)["count"] == 0
 
 
+# The name is from when a dp mesh was refused; it now checks the rows.
 def test_learner_refuses_a_dp_mesh():
+    """A dp mesh is no longer refused: the learner builds, and rank 1 of
+    dp = 2 takes the second half of every leaf along its row axis (axis 0
+    unless ``batch_axes`` names another), and the whole batch when some
+    row axis does not split evenly. tests/test_torch_rl_dp.py runs it on
+    two ranks."""
     class Mesh:
         mesh_dim_names = ("dp", "tp")
 
         def size(self, dim=None):
             return (2, 1)[dim] if dim is not None else 2
 
-    with pytest.raises(NotImplementedError, match="dp"):
-        Learner(MLPModule(observation_size=OBS, num_actions=ACTS),
-                ppo.ppo_loss, make_adam(1e-3), mesh=Mesh())
+        def get_local_rank(self, name):
+            return {"dp": 1, "tp": 0}[name]
+
+    learner = Learner(MLPModule(observation_size=OBS, num_actions=ACTS),
+                      ppo.ppo_loss, make_adam(1e-3), mesh=Mesh(),
+                      batch_axes={"cols": 1})
+    rows = torch.arange(24).reshape(6, 4)
+    got = learner._shard({"rows": rows, "cols": rows, "s": rows[0, 0]})
+    assert torch.equal(got["rows"], rows[3:])
+    assert torch.equal(got["cols"], rows[:, 2:])
+    assert torch.equal(got["s"], rows[0, 0])
+    whole = learner._shard({"rows": rows[:5], "cols": rows[:5]})
+    assert torch.equal(whole["rows"], rows[:5])
+    assert torch.equal(whole["cols"], rows[:5])
 
 
 # ---------------------------------------------------------------- slice

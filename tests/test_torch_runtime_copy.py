@@ -28,6 +28,8 @@ COPIED = (
     "exceptions.py",
     "version.py",
     "_private/__init__.py",
+    "_private/tls_utils.py",
+    "dashboard.py",
     "_private/ids.py",
     "_private/config.py",
     "_private/rpc.py",
@@ -281,6 +283,17 @@ PORTED = {
          "attribution_report", "_read_capture", "step_hook",
          "_step_hook_armed", "_finish_capture", "profile_train_step"},
     ),
+    "autoscaler/gcp.py": (
+        "only the notice source and the REST transport: the GKE and "
+        "queued-resource TPU providers, their recorded transport and "
+        "GcpHttpError.is_conflict (their retry rule) wait for the "
+        "autoscaler's slice",
+        {"import logging", "import threading", "import uuid",
+         "import typing", "import urllib.error",
+         "import ray_tpu_torch.autoscaler.providers", "logger", "_TPU_API",
+         "_GKE_API", "GcpHttpError.is_conflict", "RecordedTransport",
+         "GkeTpuNodeProvider"},
+    ),
     "rl/module.py": (
         "functional torch modules: init takes a torch.Generator, forward "
         "works on tensors; tree helpers, params_to_torch and "
@@ -292,8 +305,10 @@ PORTED = {
          "params_to_numpy", "params_to_torch", "params_from_jax"},
     ),
     "rl/learner.py": (
-        "one device, no mesh: the loss under torch.autograd, then the "
-        "optimizer; a dp mesh raises",
+        "the loss under torch.autograd, then the optimizer, on one "
+        "device; a dp mesh is one process per rank, each taking its "
+        "rows along the leaf's row axis, the gradients mean-reduced over "
+        "the dp group",
         {"import jax", "import jax.numpy", "import optax",
          "import jax.sharding", "import numpy", "import torch",
          "import ray_tpu_torch.rl.module", "LossFn", "_dp_size",
@@ -319,9 +334,12 @@ PORTED = {
     ),
     "rl/impala.py": (
         "the loss on tensors; v-trace a reversed loop over time on the "
-        "learner's device in place of lax.scan",
+        "learner's device in place of lax.scan; under a dp learner the "
+        "rows are the env columns and the advantage statistics are the "
+        "whole batch's",
         {"import jax", "import jax.numpy", "import torch", "vtrace_targets",
-         "_normalized", "vtrace_loss", "IMPALA._make_learner"},
+         "ROLLOUT_AXES", "_normalized", "vtrace_loss",
+         "IMPALA._make_learner"},
     ),
     "rl/appo.py": (
         "the loss on tensors; the target network a clone refreshed in "
@@ -378,6 +396,23 @@ PORTED = {
         "its capture handle keeps the stopped profiler for reading",
         {"ProfileCapture", "jax_profile", "torch_profile"},
     ),
+    "daemon.py": (
+        "the default session directory is the port's own, so that one "
+        "package's stop never signals the other's daemons",
+        {"DEFAULT_SESSION_DIR"},
+    ),
+    "job.py": (
+        "a job's log goes under the temporary directory's "
+        "ray_tpu_torch_jobs, not /tmp/ray_tpu_jobs",
+        {"import tempfile", "JobSubmissionClient.submit_job"},
+    ),
+    "scripts.py": (
+        "no lint subcommand (_private/lint/ is not ported); start --tls "
+        "refuses plainly without the cryptography package when it must "
+        "generate the certificate; the timeline's default path is under "
+        "the temporary directory",
+        {"cmd_start", "_tls_material_given", "main"},
+    ),
     "api.py": (
         "num_gpus maps to the GPU resource, as num_tpus maps to TPU",
         {"_normalize_options"},
@@ -392,7 +427,6 @@ PORTED = {
 # port does not have yet; each raises ModuleNotFoundError where reached.
 MISSING = {
     "ray_tpu_torch._private.lint",
-    "ray_tpu_torch.autoscaler",
 }
 
 
