@@ -317,6 +317,22 @@ Phase 19 (run while phase 17c's fit starts its workers) the port's
          2's, P1 launched 12 times per decode step (added to the kernels
          line's paged_attention_d64 count); `list jobs`, `head --json`,
          `mem --json` exit 0; `stop` leaves no daemon alive.
+Phase 20 an autoscaled GPU node serving mini from an ActorPool: a runtime
+         whose head node offers no GPU (its resources say GPU 0), an
+         Autoscaler over FakeNodeProvider with one node type {"CPU": 2,
+         "GPU": 1} (max_workers 1); two num_gpus=0.5 actors make it add
+         exactly one node, and both run on the node the provider maps its
+         id to. Each draws mini on the card from the seed and serves pool
+         items (one of phase 2's mini prompts each, greedy, phase 2's
+         max_tokens), its decode loop wrapped in a tqdm_ray bar, and puts
+         (item, P1 launches, decode steps) from its engine's counters on a
+         util.queue.Queue: half the items through ActorPool.map (order
+         held), half through map_unordered (the set held); every stream
+         equal to phase 2's or held by stream_check, P1 = 12 x decode
+         steps per item, the driver's tqdm_ray display seeing every bar at
+         its total. The actors killed, the autoscaler terminates the idle
+         node within its idle timeout plus a few intervals and the head
+         counts no GPU. The P1 launches are not in the kernels line.
 Timing   each kernel at the main path's shapes (CUDA events, cold L2):
          its time, its plain version's, its bound (P1 also at the verify
          step's K = 4 and at batch 64, on lines of their own), and for the flash
@@ -5776,6 +5792,263 @@ def phase19(seed, m2):
             "steps": got["steps"], "same": same, "s": total_s}
 
 
+# ------------------------------------------------------------ phase 20
+# An autoscaled GPU node serving mini from an ActorPool. The head node
+# offers no GPU, so the two half-GPU actors are demand only a new node can
+# meet: the autoscaler adds one, the actors serve pool items on it, and
+# once they are killed the idle node goes.
+P20_TYPE = {"CPU": 2.0, "GPU": 1.0}
+P20_INTERVAL_S = 0.25
+P20_IDLE_S = 2.0
+P20_REAP_LIMIT_S = P20_IDLE_S + 12 * P20_INTERVAL_S  # from the kills
+# A stopped node leaves the head's table when its keepalives stop for the
+# head's HEALTH_TIMEOUT_S (30 s by default), as in the JAX package: the
+# phase's runtime takes 3 s (keepalives every 1 s, a check every 1 s), so
+# that the head counts no GPU within P20_GONE_S of the node's termination.
+P20_HEALTH_S = 3.0
+P20_GONE_S = P20_HEALTH_S + 3.0
+
+
+class P20Server:
+    """A model on the device in an actor: serves the prompts of one pool
+    item greedy, its decode loop wrapped in a tqdm_ray bar, and puts
+    (item, P1 launches, decode steps, pid) read from its engine's counters
+    on ``queue``."""
+
+    def __init__(self, seed, model="mini", device="cuda"):
+        from ray_tpu_torch.llm.engine import LLMEngine
+        from ray_tpu_torch.models.llama import PRESETS, init_params
+
+        self.stamps = {"init": time.time()}
+        cfg = PRESETS[model]
+        params = init_params(cfg, seed, device=device, dtype=cfg.dtype)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        self.stamps["drawn"] = time.time()
+        self.device = device
+        self.eng = LLMEngine(cfg, max_batch=8, max_seq=2048, params=params,
+                             kv="paged", page_size=64, seed=seed,
+                             device=device)
+        self.stamps["engine"] = time.time()
+
+    def node_addr(self):
+        """The node's address, and the wall clock of the process's start
+        and of its constructor's steps."""
+        with open("/proc/self/stat") as f:
+            ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+        with open("/proc/stat") as f:
+            boot = next(int(line.split()[1]) for line in f
+                        if line.startswith("btime"))
+        start = boot + ticks / os.sysconf("SC_CLK_TCK")
+        return os.environ["RAY_TPU_NODE_ADDR"], {"start": start,
+                                                  **self.stamps}
+
+    def serve(self, item, prompts, max_tokens, queue):
+        from ray_tpu_torch.experimental import tqdm_ray
+        from ray_tpu_torch.llm.engine import SamplingParams
+
+        eng = self.eng
+        before = eng.stats()
+        sampling = SamplingParams(max_tokens=max_tokens)
+        order = {eng.add_request(p, sampling): i
+                 for i, p in enumerate(prompts)}
+        outs = [None] * len(prompts)
+        made = before["tokens_generated"]
+        with tqdm_ray.tqdm(desc=f"p20 item {item}",
+                           total=max_tokens * len(prompts)) as bar:
+            while eng.has_unfinished():
+                for fin in eng.step():
+                    outs[order[fin["request_id"]]] = fin["tokens"]
+                now = eng.stats()["tokens_generated"]
+                bar.update(now - made)
+                made = now
+        if self.device == "cuda":
+            torch.cuda.synchronize()
+        after = eng.stats()
+        p1 = (after["kernel_launches"]["paged_attention"]
+              - before["kernel_launches"]["paged_attention"])
+        queue.put((item, p1, after["decode_steps"] - before["decode_steps"],
+                   os.getpid()))
+        return {"item": item, "streams": outs}
+
+
+def p20_provider():
+    """FakeNodeProvider that stamps each create (after the node registered
+    with the head: NodeManager.start registers it) and terminate."""
+    from ray_tpu_torch.autoscaler import FakeNodeProvider
+
+    class StampedProvider(FakeNodeProvider):
+        def __init__(self):
+            super().__init__()
+            self.created, self.terminated = [], []
+
+        def create_node(self, node_type, resources):
+            pid = super().create_node(node_type, resources)
+            self.created.append((pid, time.perf_counter()))
+            return pid
+
+        def terminate_node(self, provider_node_id):
+            super().terminate_node(provider_node_id)
+            self.terminated.append((provider_node_id, time.perf_counter()))
+
+    return StampedProvider()
+
+
+def p20_wait(cond, timeout, what):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        check(time.monotonic() < deadline, f"20: {what} in {timeout} s")
+        time.sleep(0.05)
+
+
+def phase20(seed, m2, model="mini", device="cuda"):
+    """The autoscaler's scale-up, serving through an ActorPool, a Queue
+    and tqdm_ray bars on the new node, and its scale-down."""
+    import io
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.autoscaler import Autoscaler, NodeTypeConfig
+    from ray_tpu_torch.experimental import tqdm_ray
+    from ray_tpu_torch.models.llama import PRESETS, init_params
+    from ray_tpu_torch.util import state
+    from ray_tpu_torch.util.actor_pool import ActorPool
+    from ray_tpu_torch.util.queue import Queue
+
+    print(f"phase 20: an autoscaled GPU node serving {model} from an "
+          "ActorPool")
+    cfg = PRESETS[model]
+    t0 = time.perf_counter()
+    rt.init(num_cpus=4, resources={"GPU": 0.0},
+            _system_config={"HEALTH_TIMEOUT_S": P20_HEALTH_S})
+    provider = p20_provider()
+    scaler = Autoscaler(provider, {"gpu": NodeTypeConfig(
+        resources=P20_TYPE, max_workers=1)}, interval_s=P20_INTERVAL_S,
+        idle_timeout_s=P20_IDLE_S)
+    try:
+        check(not rt.cluster_resources().get("GPU"),
+              f"20: the head offers GPU {rt.cluster_resources()}")
+        sink = io.StringIO()
+        tqdm_ray.enable_display(out=sink)
+        queue = Queue()
+        scaler.start()
+        t_demand, wall_demand = time.perf_counter(), time.time()
+        cls = rt.remote(P20Server).options(num_gpus=0.5)
+        # An actor's .remote() returns once its constructor has run: the
+        # two start at once, from two threads, or their cold starts (a
+        # worker importing torch and opening a CUDA context) add up.
+        with concurrent.futures.ThreadPoolExecutor(2) as starter:
+            actors = list(starter.map(
+                lambda _: cls.remote(seed, model, device), range(2)))
+        placed = rt.get([a.node_addr.remote() for a in actors], timeout=300)
+        t_actors = time.perf_counter()
+        addrs = [addr for addr, _ in placed]
+        # Seconds from the demand to each actor's process start, its
+        # constructor, its weights drawn and its engine made.
+        ups = [{k: round(v - wall_demand, 2) for k, v in st.items()}
+               for _, st in placed]
+        check(len(provider.created) == 1,
+              f"20: {len(provider.created)} nodes created for two half-GPU "
+              "actors, not one")
+        (pid, t_node), = provider.created
+        check(list(provider.non_terminated_nodes()) == [pid],
+              f"20: the provider lists {provider.non_terminated_nodes()}")
+        nid = provider.runtime_node_id(pid)
+        nodes = {n["node_id"]: n for n in state.list_nodes()}
+        check(nid in nodes, f"20: provider node {pid} maps to {nid}, not a "
+              f"registered node {sorted(nodes)}")
+        check(nodes[nid]["resources"] == P20_TYPE,
+              f"20: the new node's resources {nodes[nid]['resources']}")
+        check(addrs == [nodes[nid]["addr"]] * 2,
+              f"20: actors on {addrs}, not the new node "
+              f"{nodes[nid]['addr']}")
+
+        prompts, want = m2["prompts"], m2["outs"]
+        max_tokens = len(want[0])
+        items = list(enumerate(prompts))
+        half = len(items) // 2
+        pool = ActorPool(actors)
+
+        def serve(actor, value):
+            return actor.serve.remote(value[0], [value[1]], max_tokens,
+                                      queue)
+
+        outs, t_first = [None] * len(items), None
+        ordered = []
+        for got in pool.map(serve, items[:half]):
+            t_first = t_first or time.perf_counter()
+            ordered.append(got["item"])
+            outs[got["item"]] = got["streams"][0]
+        check(ordered == list(range(half)),
+              f"20: ActorPool.map gave items {ordered}, not in order")
+        unordered = [got for got in pool.map_unordered(serve, items[half:])]
+        for got in unordered:
+            outs[got["item"]] = got["streams"][0]
+        check(sorted(g["item"] for g in unordered)
+              == list(range(half, len(items))),
+              f"20: map_unordered gave items "
+              f"{[g['item'] for g in unordered]}")
+        check({tuple(g["streams"][0]) for g in unordered}
+              == {tuple(outs[i]) for i in range(half, len(items))},
+              "20: map_unordered's set of streams")
+        serve_s = time.perf_counter() - t_demand
+        records = sorted(queue.get(timeout=60) for _ in items)
+        check([r[0] for r in records] == list(range(len(items))),
+              f"20: queue records {records}")
+        for item, p1, steps, _ in records:
+            check(p1 > 0 and p1 == cfg.n_layers * steps,
+                  f"20: item {item}: P1 launches {p1} for {steps} decode "
+                  "steps")
+        pids = {r[3] for r in records}
+        check(len(pids) == 2, f"20: items served by processes {pids}")
+        bars = {i: f"[p20 item {i}] {max_tokens}/{max_tokens} done"
+                for i in range(len(items))}
+        p20_wait(lambda: all(b in sink.getvalue() for b in bars.values()),
+                 15, f"the tqdm display did not see every bar done: "
+                 f"{sink.getvalue()[-600:]!r}")
+
+        t_kill = time.perf_counter()
+        for a in actors:
+            rt.kill(a)
+        p20_wait(lambda: not provider.non_terminated_nodes(),
+                 P20_REAP_LIMIT_S, "the idle node was not terminated")
+        reap_s = provider.terminated[0][1] - t_kill
+        p20_wait(lambda: not rt.cluster_resources().get("GPU"), P20_GONE_S,
+                 f"the head still counts GPU {rt.cluster_resources()}")
+        gone_s = time.perf_counter() - provider.terminated[0][1]
+        queue.shutdown()
+    finally:
+        scaler.stop()
+        for left in list(provider.non_terminated_nodes()):
+            provider.terminate_node(left)
+        rt.shutdown()
+    same = sum(a == b for a, b in zip(outs, want))
+    if same < len(want):
+        params = init_params(cfg, seed, device=device, dtype=cfg.dtype)
+        stream_check(cfg, params, prompts, outs, f"20 {model} from the pool",
+                     device)
+        del params
+    total_s = time.perf_counter() - t0
+    p1 = sum(r[1] for r in records)
+    steps = [r[2] for r in records]
+    print(f"  20 {model} through ActorPool (map {half} items ordered, "
+          f"map_unordered {len(items) - half}): {same} of {len(want)} streams"
+          f" equal phase 2's (the rest held by stream_check); demand to a "
+          f"registered node {t_node - t_demand:.2f} s, to both actors up "
+          f"{t_actors - t_demand:.2f} s (per actor, s from the demand: "
+          f"{ups}), to the first result "
+          f"{t_first - t_demand:.2f} s, to the last {serve_s:.2f} s; P1 "
+          f"launches {p1} = {cfg.n_layers} x {sum(steps)} decode steps "
+          f"({steps} per item); node reaped {reap_s:.2f} s after the kills "
+          f"(limit {P20_REAP_LIMIT_S:g}), its GPU off the head's table "
+          f"{gone_s:.2f} s later; phase 20 {total_s:.1f} s "
+          f"[{card_line()}]")
+    return {"node_s": t_node - t_demand, "first_s": t_first - t_demand,
+            "actors_s": t_actors - t_demand, "ups": ups,
+            "serve_s": serve_s, "reap_s": reap_s, "gone_s": gone_s,
+            "same": same, "p1": p1,
+            "steps": sum(steps), "s": total_s}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -6096,6 +6369,8 @@ def main() -> int:
     p17 = phase17(during=lambda: phase19(args.seed, m2))
     p19 = p17["c"]["during"]
     lap("phase 17, with phase 19 during 17c")
+    p20 = phase20(args.seed, m2)
+    lap("phase 20")
     prof = p4["profile"]
     print(f"train: {p4['tokens_per_s']:.1f} tokens/s, "
           f"{p4['peak_share']:.2%} of dense bf16 peak, step "
@@ -6289,6 +6564,14 @@ def main() -> int:
           f"equal phase 2's, P1 {p19['p1']} launches in the job's task "
           f"(= 12 x {p19['steps']}; added to paged_attention_d64's count); "
           f"phase 19 {p19['s']:.1f} s [{card}]")
+    print(f"phase 20, an autoscaled GPU node: demand to a registered node "
+          f"{p20['node_s']:.2f} s, to the first pool result "
+          f"{p20['first_s']:.2f} s, all {len(m2['outs'])} items "
+          f"{p20['serve_s']:.2f} s, {p20['same']} of {len(m2['outs'])} "
+          f"streams equal phase 2's; P1 {p20['p1']} launches in the two "
+          f"actors (= 12 x {p20['steps']}; not in the kernels line); the "
+          f"idle node reaped {p20['reap_s']:.2f} s after the kills; phase "
+          f"20 {p20['s']:.1f} s [{card}]")
     rows.update({k: tp_rows[k] for k in TP_MAIN_ROWS})
     rows.update(p9["pipeline"]["rows"])
     # Phase 16's trials run the bench step at phase 4's shape: the same

@@ -2053,6 +2053,7 @@ def detect_labels() -> dict[str, str]:
             k, v = pair.split("=", 1)
             labels[k.strip()] = v.strip()
     labels.update(detect_accelerator_labels())
+    labels.update(_gce_metadata_labels())
     # Canonical slice fault-domain label: the head's slice table, the
     # checkpoint replicator's cross-slice placement, and the autoscaler's
     # slice-unit replacement all key on "slice". On real TPU VMs the
@@ -2060,6 +2061,42 @@ def detect_labels() -> dict[str, str]:
     # label; alias it unless the operator set "slice" explicitly.
     if "slice" not in labels and labels.get("ray_tpu_torch.io/tpu-slice-name"):
         labels["slice"] = labels["ray_tpu_torch.io/tpu-slice-name"]
+    return labels
+
+
+def _gce_metadata_labels() -> dict[str, str]:
+    """On GCE/GKE VMs, pick up the provider id the autoscaler stamped
+    into instance metadata (gcp.py create_node) so the autoscaler can
+    map its provider node ids to registered runtime nodes. The DMI
+    product name gates the network probe — non-GCE hosts never touch
+    the metadata endpoint."""
+    try:
+        with open("/sys/class/dmi/id/product_name") as f:
+            if "Google" not in f.read():
+                return {}
+    except OSError:
+        return {}
+    import urllib.request
+
+    labels: dict[str, str] = {}
+    base = "http://metadata.google.internal/computeMetadata/v1/instance/"
+    # node_pool-mode slices have no stamped provider id (setSize is
+    # anonymous); the instance NAME is what the provider's targeted
+    # scale-down and runtime_node_id match against instead.
+    for path, key in (
+        ("attributes/ray-tpu-provider-id", "ray-tpu-provider-id"),
+        ("name", "ray-tpu-gce-instance"),
+    ):
+        try:
+            req = urllib.request.Request(
+                base + path, headers={"Metadata-Flavor": "Google"}
+            )
+            with urllib.request.urlopen(req, timeout=2) as resp:
+                value = resp.read().decode().strip()
+            if value:
+                labels[key] = value
+        except OSError:
+            pass
     return labels
 
 

@@ -1,11 +1,8 @@
 """The JAX package's Data-ecosystem tests (tests/test_data_ecosystem.py)
-on the port's runtime: Delta Lake tables and BigQuery REST reads.
-
-Every Delta and BigQuery case runs unchanged but for the package name and
-for the BigQuery transport: the JAX package's tests take
-``autoscaler.gcp.RecordedTransport``, which the port does not have, so a
-transport that replays a recorded call script the same way is defined
-here. The dask-bridge cases wait for ``util/dask_bridge.py``.
+on the port's runtime: Delta Lake tables, BigQuery REST reads over the
+port's ``autoscaler.gcp.RecordedTransport`` (the read task runs it on a
+worker), and the dask get-protocol bridge (``util/dask_bridge.py``, no
+dask import). Every case runs unchanged but for the package name.
 """
 
 import json
@@ -23,37 +20,6 @@ def cluster():
     info = start_cluster(num_cpus=8)
     yield info
     stop_cluster(info)
-
-
-def recorded_transport(script: list[dict]):
-    """A transport that replays ``script``: each entry {"method", "url",
-    "response", optional "body_contains"}; calls must arrive in order and
-    a mismatch raises. The class is made here so that it pickles by
-    value: the read task runs it on a worker."""
-
-    class RecordedTransport:
-        def __init__(self, script):
-            self.script = list(script)
-            self._i = 0
-
-        def request(self, method, url, body=None):
-            if self._i >= len(self.script):
-                raise AssertionError(
-                    f"unexpected extra call #{self._i}: {method} {url}")
-            expect = self.script[self._i]
-            self._i += 1
-            if expect["method"] != method or expect["url"] != url:
-                raise AssertionError(
-                    f"call #{self._i - 1}: got {method} {url}, expected "
-                    f"{expect['method']} {expect['url']}")
-            for fragment in expect.get("body_contains", ()):
-                if fragment not in json.dumps(body or {}):
-                    raise AssertionError(
-                        f"call #{self._i - 1}: body missing {fragment!r}: "
-                        f"{body}")
-            return expect["response"]
-
-    return RecordedTransport(script)
 
 
 # -------------------------------------------------------------- delta
@@ -127,7 +93,9 @@ def test_delta_not_a_table(tmp_path):
 # ----------------------------------------------------------- bigquery
 def test_bigquery_query_over_recorded_transport(cluster):
     url = "https://bigquery.googleapis.com/bigquery/v2/projects/proj/queries"
-    t = recorded_transport(
+    from ray_tpu_torch.autoscaler.gcp import RecordedTransport
+
+    t = RecordedTransport(
         [
             {
                 "method": "POST",
@@ -180,7 +148,9 @@ def test_bigquery_query_over_recorded_transport(cluster):
 
 def test_bigquery_dataset_sugar_and_validation(cluster):
     url = "https://bigquery.googleapis.com/bigquery/v2/projects/proj/queries"
-    t = recorded_transport(
+    from ray_tpu_torch.autoscaler.gcp import RecordedTransport
+
+    t = RecordedTransport(
         [
             {
                 "method": "POST",
@@ -205,6 +175,58 @@ def test_bigquery_dataset_sugar_and_validation(cluster):
         rdata.read_bigquery(project="p", query="q", dataset="d.t")
     with pytest.raises(ValueError, match="dataset.table"):
         rdata.read_bigquery(project="p", dataset="nodot")
+
+
+# ---------------------------------------------------------------- dask
+def test_dask_scheduler_executes_graphs(cluster):
+    """The dask get-protocol over the port's tasks: hand-built graphs in
+    the documented format (dict of key -> task tuple) — the same
+    graphs dask.compute(scheduler=ray_tpu_dask_get) would submit."""
+    from operator import add, mul
+
+    from ray_tpu_torch.util.dask_bridge import ray_tpu_dask_get
+
+    dsk = {
+        "a": 1,
+        "b": (add, "a", 2),          # 3
+        "c": (mul, "b", "b"),        # 9
+        "d": (sum, ["a", "b", "c"]),  # 13
+        "alias": "c",
+    }
+    assert ray_tpu_dask_get(dsk, "d") == 13
+    assert ray_tpu_dask_get(dsk, ["b", ["c", "alias"]]) == [3, [9, 9]]
+
+
+def test_dask_scheduler_parallel_subtrees(cluster):
+    """Independent subtrees run as independent cluster tasks (each
+    leaf records its executing pid; width > 1 proves fan-out)."""
+    import os as _os
+
+    from ray_tpu_torch.util.dask_bridge import ray_tpu_dask_get
+
+    def pid_of(_i):
+        import os
+
+        import time
+
+        time.sleep(0.2)
+        return os.getpid()
+
+    dsk = {f"p{i}": (pid_of, i) for i in range(4)}
+    dsk["all"] = (lambda *ps: sorted(set(ps)), "p0", "p1", "p2", "p3")
+    pids = ray_tpu_dask_get(dsk, "all")
+    assert all(p != _os.getpid() for p in pids)  # ran on workers
+    assert len(pids) >= 2  # genuinely fanned out
+
+
+def test_dask_scheduler_rejects_cycles(cluster):
+    from operator import add
+
+    from ray_tpu_torch.util.dask_bridge import ray_tpu_dask_get
+
+    dsk = {"a": (add, "b", 1), "b": (add, "a", 1)}
+    with pytest.raises(ValueError, match="cycle"):
+        ray_tpu_dask_get(dsk, "a")
 
 
 def test_delta_checkpoint_seeds_replay(cluster, tmp_path):

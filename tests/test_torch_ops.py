@@ -145,7 +145,12 @@ def test_port_imports_neither_jax_nor_ray_tpu():
     for name in ("train/profile.py", "_private/kernel_profile.py",
                  "models/resnet.py", "_private/tls_utils.py", "daemon.py",
                  "job.py", "dashboard.py", "scripts.py",
-                 "autoscaler/__init__.py", "autoscaler/gcp.py"):
+                 "autoscaler/__init__.py", "autoscaler/gcp.py",
+                 "autoscaler/autoscaler.py", "autoscaler/providers.py",
+                 "autoscaler/scheduler.py", "util/actor_pool.py",
+                 "util/queue.py", "util/multiprocessing.py",
+                 "util/joblib.py", "util/dask_bridge.py",
+                 "experimental/tqdm_ray.py"):
         assert REPO / "ray_tpu_torch" / name in files, name
     for name in ("api.py", "placement.py", "exceptions.py", "version.py",
                  "_native/shmstore.py", "_private/config.py",

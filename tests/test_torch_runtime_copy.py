@@ -35,6 +35,8 @@ COPIED = (
     "_private/rpc.py",
     "_private/test_utils.py",
     "_private/accelerators/accelerator.py",
+    "autoscaler/autoscaler.py",
+    "autoscaler/scheduler.py",
     "checkpoint/__init__.py",
     "checkpoint/erasure.py",
     "checkpoint/fork.py",
@@ -56,6 +58,7 @@ COPIED = (
     "data/plan.py",
     "experimental/__init__.py",
     "experimental/tensor_transport.py",
+    "experimental/tqdm_ray.py",
     "llm/batch.py",
     "llm/serve_integration.py",
     "runtime/__init__.py",
@@ -95,7 +98,12 @@ COPIED = (
     "tune/trial.py",
     "tune/tuner.py",
     "util/__init__.py",
+    "util/actor_pool.py",
+    "util/dask_bridge.py",
+    "util/joblib.py",
     "util/metrics.py",
+    "util/multiprocessing.py",
+    "util/queue.py",
     "util/rpdb.py",
     "util/scheduling_strategies.py",
     "util/state.py",
@@ -239,12 +247,10 @@ PORTED = {
         {"ServeController._start_replica"},
     ),
     "runtime/node.py": (
-        "node labels come from the accelerator registry only: no GCE "
-        "metadata probe over the network; an idle node's keepalive comes "
-        "three times per HEALTH_TIMEOUT_S (the source's fixed 5 s lets "
-        "a head with a shorter timeout reap a live node between two)",
-        {"detect_labels", "_gce_metadata_labels",
-         "NodeManager._heartbeat_loop"},
+        "an idle node's keepalive comes three times per HEALTH_TIMEOUT_S "
+        "(the source's fixed 5 s lets a head with a shorter timeout reap "
+        "a live node between two)",
+        {"NodeManager._heartbeat_loop"},
     ),
     "runtime/memory.py": (
         "the memory plane samples the CUDA caching allocator, in a process "
@@ -284,15 +290,22 @@ PORTED = {
          "_step_hook_armed", "_finish_capture", "profile_train_step"},
     ),
     "autoscaler/gcp.py": (
-        "only the notice source and the REST transport: the GKE and "
-        "queued-resource TPU providers, their recorded transport and "
-        "GcpHttpError.is_conflict (their retry rule) wait for the "
-        "autoscaler's slice",
-        {"import logging", "import threading", "import uuid",
-         "import typing", "import urllib.error",
-         "import ray_tpu_torch.autoscaler.providers", "logger", "_TPU_API",
-         "_GKE_API", "GcpHttpError.is_conflict", "RecordedTransport",
-         "GkeTpuNodeProvider"},
+        "the GPU provider in place of the TPU one: GkeGpuNodeProvider "
+        "creates a GCE instance per node (compute/v1 instances insert, "
+        "polled on the zone's operations, listed by a label filter that "
+        "leaves out terminal states) where GkeTpuNodeProvider creates a "
+        "Cloud TPU queued resource; its node_pool mode is the source's",
+        {"import urllib.parse", "_TPU_API", "_COMPUTE_API",
+         "_TERMINAL_STATES", "GkeTpuNodeProvider", "GkeGpuNodeProvider"},
+    ),
+    "autoscaler/providers.py": (
+        "re-exports the GPU provider where the source re-exports the TPU "
+        "one",
+        {"import ray_tpu_torch.autoscaler.gcp"},
+    ),
+    "autoscaler/__init__.py": (
+        "exports GkeGpuNodeProvider in place of GkeTpuNodeProvider",
+        {"import ray_tpu_torch.autoscaler.providers", "__all__"},
     ),
     "rl/module.py": (
         "functional torch modules: init takes a torch.Generator, forward "
