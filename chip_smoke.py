@@ -316,7 +316,17 @@ Phase 19 (run while phase 17c's fit starts its workers) the port's
          the seed on the card): SUCCEEDED, every stream equal to phase
          2's, P1 launched 12 times per decode step (added to the kernels
          line's paged_attention_d64 count); `list jobs`, `head --json`,
-         `mem --json` exit 0; `stop` leaves no daemon alive.
+         `mem --json` exit 0. The job also registers p19_serve_mini with
+         the port's xlang.register_function (msgpack in and out: the
+         prompts, max_tokens, the seed). A C++ driver (P19_DRIVER,
+         built with the port's C++ client by g++ beside phase 0's
+         kernels, no Python in it) calls it through raytpu::Driver on
+         the CLI's head with its token: the function serves the prompts
+         from a num_gpus=1 task (its own lease holds a CPU only), and the
+         driver prints every stream: 8 of 8 equal phase 2's, P1 launched
+         12 times per decode step (added to paged_attention_d64's count),
+         and a name never registered comes back as an error text. Then
+         `stop` leaves no daemon alive.
 Phase 20 an autoscaled GPU node serving mini from an ActorPool: a runtime
          whose head node offers no GPU (its resources say GPU 0), an
          Autoscaler over FakeNodeProvider with one node type {"CPU": 2,
@@ -5639,7 +5649,165 @@ def serve_mini(spec):
 out = rt.get(serve_mini.remote(spec))
 json.dump(out, open({result!r}, "w"))
 print("job served", len(out["streams"]), "streams,", out["p1"], "P1 launches")
+
+
+def p19_serve_mini(prompts, max_tokens, seed):
+    # Called by the C++ driver: msgpack data in and out. The worker this
+    # runs in holds a CPU lease, so the card is leased by the task.
+    got = rt.get(serve_mini.remote(
+        {{"prompts": prompts, "max_tokens": max_tokens, "seed": seed}}))
+    return {{"streams": got["streams"], "p1": got["p1"],
+             "steps": got["steps"]}}
+
+
+from ray_tpu_torch._private.xlang import register_function
+
+print("registered", register_function("p19_serve_mini", p19_serve_mini))
 """
+
+# Phase 19's C++ driver: the port's C++ client only (raytpu::Driver), no
+# Python runtime. Usage: p19_driver <head host:port> <token> <spec file>;
+# the spec file holds "<seed> <max_tokens>", then one prompt's token ids
+# per line.
+P19_CPP_DIR = os.path.join(OUT_DIR, "p19_cpp")
+P19_DRIVER = r"""
+#include <chrono>
+#include <csignal>
+#include <fstream>
+#include <iostream>
+#include <sstream>
+
+#include "raytpu/client.h"
+
+using raytpu::Driver;
+using raytpu::Value;
+using raytpu::ValueVec;
+
+int main(int argc, char** argv) {
+  std::signal(SIGPIPE, SIG_IGN);
+  auto t0 = std::chrono::steady_clock::now();
+  if (argc != 4) {
+    std::cerr << "usage: p19_driver <head host:port> <token> <spec>\n";
+    return 2;
+  }
+  std::ifstream spec(argv[3]);
+  int64_t seed = 0, max_tokens = 0;
+  spec >> seed >> max_tokens;
+  std::string line;
+  std::getline(spec, line);
+  ValueVec prompts;
+  while (std::getline(spec, line)) {
+    std::istringstream ids(line);
+    ValueVec prompt;
+    int64_t id;
+    while (ids >> id) prompt.push_back(Value::I(id));
+    if (!prompt.empty()) prompts.push_back(Value::A(std::move(prompt)));
+  }
+  try {
+    Driver drv(argv[1], argv[2]);
+    std::string blob;
+    bool registered = drv.head().KvGet("xfn:p19_serve_mini", &blob);
+    std::cout << "REGISTERED " << registered << " " << blob.size() << "\n";
+    Value out = drv.Call("p19_serve_mini",
+                         {Value::A(std::move(prompts)), Value::I(max_tokens),
+                          Value::I(seed)});
+    const Value& streams = out.at("streams");
+    if (!streams.arr) throw std::runtime_error("no streams in the reply");
+    for (size_t k = 0; k < streams.arr->size(); ++k) {
+      std::cout << "STREAM " << k;
+      for (const Value& t : *(*streams.arr)[k].arr) std::cout << " " << t.i;
+      std::cout << "\n";
+    }
+    std::chrono::duration<double> call_s =
+        std::chrono::steady_clock::now() - t0;
+    std::cout << "P1 " << out.at("p1").i << "\n"
+              << "STEPS " << out.at("steps").i << "\n"
+              << "CALL_S " << call_s.count() << "\n";
+    try {
+      drv.Call("p19_never_registered", {});
+      std::cout << "ERROR an unregistered name returned\n";
+      return 1;
+    } catch (const std::exception& e) {
+      std::cout << "RAISED " << e.what() << "\n";
+    }
+  } catch (const std::exception& e) {
+    std::cerr << "FATAL " << e.what() << "\n";
+    return 1;
+  }
+  std::cout << "CPP MINI OK\n";
+  return 0;
+}
+"""
+
+
+def p19_cpp_build():
+    """The port's C++ client (library and programs) and phase 19's driver
+    against it, built with g++; run beside phase 0's kernel build."""
+    from ray_tpu_torch._native import cpp_client
+
+    t0 = time.perf_counter()
+    os.makedirs(P19_CPP_DIR, exist_ok=True)
+    src = os.path.join(P19_CPP_DIR, "p19_driver.cpp")
+    with open(src, "w") as f:
+        f.write(P19_DRIVER)
+    lib = cpp_client.build()
+    driver = cpp_client.build_program(
+        src, os.path.join(P19_CPP_DIR, "p19_driver"))
+    return {"lib": str(lib), "driver": str(driver),
+            "s": time.perf_counter() - t0}
+
+
+def p19_start_cpp(cpp, addr, session, m2, seed):
+    """Start phase 19's C++ driver on the CLI's cluster with phase 2's
+    mini prompts: (the process, its start time)."""
+    spec = os.path.join(P19_DIR, "spec.txt")
+    with open(spec, "w") as f:
+        f.write(f"{seed} {len(m2['outs'][0])}\n")
+        for prompt in m2["prompts"]:
+            f.write(" ".join(map(str, prompt)) + "\n")
+    token = open(os.path.join(session, "auth.token")).read().strip()
+    return (subprocess.Popen([cpp["driver"], addr, token, spec],
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True), time.perf_counter())
+
+
+def p19_finish_cpp(started, m2):
+    """Wait for the C++ driver and hold what it printed to phase 2's mini
+    streams."""
+    proc, t0 = started
+    stdout, stderr = proc.communicate(timeout=300)
+    wall_s = time.perf_counter() - t0
+    with open(os.path.join(P19_DIR, "cpp_driver.log"), "w") as f:
+        f.write(stdout + stderr)
+    check(proc.returncode == 0,
+          f"19: the C++ driver exited {proc.returncode}: "
+          f"{stdout[-2000:]} {stderr[-2000:]}")
+    lines = stdout.splitlines()
+    fields = {line.split(" ", 1)[0]: line.split(" ", 1)[1]
+              for line in lines if " " in line}
+    streams = [[int(t) for t in line.split()[2:]] for line in lines
+               if line.startswith("STREAM ")]
+    same = sum(a == b for a, b in zip(streams, m2["outs"]))
+    p1, steps = int(fields["P1"]), int(fields["STEPS"])
+    print(f"  19 C++ driver (no Python runtime): p19_serve_mini registered "
+          f"({fields['REGISTERED']}), {len(streams)} streams printed, "
+          f"{same} of {len(m2['outs'])} equal phase 2's; P1 {p1} launches "
+          f"= 12 x {steps} decode steps; call {float(fields['CALL_S']):.2f} s "
+          f"from the driver's start to its last stream ({wall_s:.2f} s in "
+          f"all); unregistered name: {fields.get('RAISED', '')[:120]!r} "
+          f"[{card_line()}]")
+    check(fields["REGISTERED"].startswith("1 "),
+          f"19: xfn:p19_serve_mini not in the head KV: {fields}")
+    check(len(streams) == len(m2["outs"]) and same == len(m2["outs"]),
+          f"19: {same} of {len(m2['outs'])} C++ streams equal phase 2's")
+    check(p1 > 0 and p1 == 12 * steps,
+          f"19: C++ call's P1 launches {p1} for {steps} decode steps")
+    check("p19_never_registered" in fields.get("RAISED", "")
+          and "not registered" in fields["RAISED"],
+          f"19: the unregistered call: {fields.get('RAISED')!r}")
+    check(lines[-1] == "CPP MINI OK", f"19: driver's last line {lines[-1]}")
+    return {"p1": p1, "steps": steps, "same": same,
+            "call_s": float(fields["CALL_S"]), "wall_s": wall_s}
 
 
 def p19_cli(*args, timeout=120):
@@ -5700,11 +5868,13 @@ def p19_rest(url, route, body=None, text=False):
     return out if text else json.loads(out)
 
 
-def phase19(seed, m2):
+def phase19(seed, m2, cpp_build):
     """`start --head` with the card detected, a job submitted through the
     dashboard's REST that serves phase 2's mini prompts from a num_gpus=1
-    task, the CLI's reads, `stop`. It needs no runtime in this process,
-    so it runs while phase 17c's fit does."""
+    task and registers p19_serve_mini, the CLI's reads, the C++ driver's
+    call (``cpp_build``: the future of ``p19_cpp_build``), `stop`. It
+    needs no runtime in this process, so it runs while phase 17c's fit
+    does."""
     import ast
 
     print("phase 19: the port's cluster from its CLI, a job serving mini")
@@ -5768,16 +5938,27 @@ def phase19(seed, m2):
     check(got["p1"] > 0 and got["p1"] == 12 * got["steps"],
           f"19: P1 launches {got['p1']} for {got['steps']} decode steps")
 
-    jobs = json.loads(p19_cli("--address", addr, "--session-dir", session,
-                              "list", "jobs"))
-    head = json.loads(p19_cli("--address", addr, "--session-dir", session,
-                              "head", "--json"))
-    mem = json.loads(p19_cli("--address", addr, "--session-dir", session,
-                             "mem", "--json"))
-    check(any(j["job_id"] == job_id and j["status"] == "SUCCEEDED"
-              for j in jobs), f"19: list jobs {jobs}")
-    check(head.get("nodes", 0) >= 1, f"19: head --json {head}")
-    check("nodes" in mem, f"19: mem --json {mem}")
+    cpp = cpp_build.result()
+    print(f"  19 the port's C++ client and phase 19's driver built by g++ "
+          f"in {cpp['s']:.2f} s beside phase 0 ({cpp['lib']})")
+    # The C++ call runs while the CLI reads the cluster.
+    driver = p19_start_cpp(cpp, addr, session, m2, seed)
+    try:
+        jobs = json.loads(p19_cli("--address", addr, "--session-dir",
+                                  session, "list", "jobs"))
+        head = json.loads(p19_cli("--address", addr, "--session-dir",
+                                  session, "head", "--json"))
+        mem = json.loads(p19_cli("--address", addr, "--session-dir",
+                                 session, "mem", "--json"))
+        check(any(j["job_id"] == job_id and j["status"] == "SUCCEEDED"
+                  for j in jobs), f"19: list jobs {jobs}")
+        check(head.get("nodes", 0) >= 1, f"19: head --json {head}")
+        check("nodes" in mem, f"19: mem --json {mem}")
+        xl = p19_finish_cpp(driver, m2)
+    finally:
+        if driver[0].poll() is None:
+            driver[0].kill()
+            driver[0].wait()
     p19_cli("stop", "--session-dir", session)
     deadline = time.monotonic() + 15
     while (p19_daemons(session) or any(pid_alive(p) for p in pids)) \
@@ -5789,7 +5970,8 @@ def phase19(seed, m2):
     print(f"  19 list, head --json, mem --json exited 0; stop left no "
           f"daemon; phase 19 {total_s:.1f} s")
     return {"start_s": start_s, "job_s": job_s, "p1": got["p1"],
-            "steps": got["steps"], "same": same, "s": total_s}
+            "steps": got["steps"], "same": same, "cpp_build_s": cpp["s"],
+            "cpp": xl, "s": total_s}
 
 
 # ------------------------------------------------------------ phase 20
@@ -6265,6 +6447,10 @@ def main() -> int:
     print(f"phase 0: card {card}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
     t0 = time.time()
+    # Phase 19's C++ client and driver build on the host beside nvcc.
+    cpp_pool = concurrent.futures.ThreadPoolExecutor(1)
+    cpp_build = cpp_pool.submit(p19_cpp_build)
+    cpp_pool.shutdown(wait=False)
     logs = _build.build()
     print(f"  kernels built in {time.time() - t0:.1f} s")
     for name, log in logs.items():
@@ -6366,7 +6552,7 @@ def main() -> int:
     lap("phase 16")
     p18 = phase18(args.seed)
     lap("phase 18")
-    p17 = phase17(during=lambda: phase19(args.seed, m2))
+    p17 = phase17(during=lambda: phase19(args.seed, m2, cpp_build))
     p19 = p17["c"]["during"]
     lap("phase 17, with phase 19 during 17c")
     p20 = phase20(args.seed, m2)
@@ -6563,7 +6749,11 @@ def main() -> int:
           f"{p19['job_s']:.2f} s after submit, {p19['same']} of 8 streams "
           f"equal phase 2's, P1 {p19['p1']} launches in the job's task "
           f"(= 12 x {p19['steps']}; added to paged_attention_d64's count); "
-          f"phase 19 {p19['s']:.1f} s [{card}]")
+          f"C++ client built in {p19['cpp_build_s']:.2f} s beside phase 0; "
+          f"the C++ driver's call {p19['cpp']['call_s']:.2f} s to its last "
+          f"stream, {p19['cpp']['same']} of 8 streams equal phase 2's, P1 "
+          f"{p19['cpp']['p1']} launches (= 12 x {p19['cpp']['steps']}; "
+          f"added too); phase 19 {p19['s']:.1f} s [{card}]")
     print(f"phase 20, an autoscaled GPU node: demand to a registered node "
           f"{p20['node_s']:.2f} s, to the first pool result "
           f"{p20['first_s']:.2f} s, all {len(m2['outs'])} items "
@@ -6583,7 +6773,8 @@ def main() -> int:
     # One row per kernel and main-path shape: the forward kernel runs in
     # the dense prefill (phase 3) and in training (phase 4).
     launches = {"paged_attention": p2["launches"],
-                "paged_attention_d64": m2["launches"] + p19["p1"],
+                "paged_attention_d64": (m2["launches"] + p19["p1"]
+                                        + p19["cpp"]["p1"]),
                 "paged_attention_p16": p2_pages[16]["launches"],
                 "paged_attention_p32": p2_pages[32]["launches"],
                 "paged_attention_p4": p2_pages[4]["launches"],

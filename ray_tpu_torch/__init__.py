@@ -66,4 +66,8 @@ def __getattr__(name):
                 f"(ray_tpu_torch.api), which failed to import: {e}"
             ) from e
         return getattr(_api, name)
+    if name == "cross_language":
+        import ray_tpu_torch.cross_language as _xl
+
+        return _xl
     raise AttributeError(f"module 'ray_tpu_torch' has no attribute {name!r}")

@@ -51,6 +51,7 @@ def build_library(name: str, sources: tuple[str, ...]) -> Path:
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = ["g++", *GXX_FLAGS, *(str(NATIVE_DIR / s) for s in sources),
                "-lpthread", "-o", str(tmp)]
+        # tpulint: allow(TPU201 reason=the lock exists to serialise this process's builds - its threads share the pid's temporary file, and a second caller must wait for the library the first is building)
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)

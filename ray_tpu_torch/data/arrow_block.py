@@ -21,6 +21,8 @@ conversion, at the edge where the math happens.
 
 from __future__ import annotations
 
+import atexit
+import gc
 import json
 
 import numpy as np
@@ -92,6 +94,12 @@ def _register():
         )
     except pa.ArrowKeyError:
         pass  # already registered (re-import)
+    # Reading a tensor column leaves reference cycles holding instances
+    # of the Python extension type. Collected during interpreter
+    # finalization, they take the process down (SIGABRT, "terminate
+    # called without an active exception") after its work is done, in a
+    # few percent of runs under load; collected before it, never.
+    atexit.register(gc.collect)
 
 
 _register()

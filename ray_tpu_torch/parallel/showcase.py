@@ -176,6 +176,7 @@ def composed_trainer_loop(config):
                         # In-flight buckets overlap this remaining
                         # compute (the gradient norm: one host read).
                         sq = sum(torch.sum(g * g) for g in grads.values())
+                        # tpulint: allow(TPU601 reason=deliberate - this single scalar read IS the remaining in-phase work the in-flight buckets overlap with; phase 17c checks exposed comm against exactly this probe)
                         gnorm = float(torch.sqrt(sq))
                 with sp.phase("collective"):
                     mean_loss = cols.allreduce(
@@ -194,9 +195,9 @@ def composed_trainer_loop(config):
             ckpt = None
             if rank == 0:
                 ckpt = tempfile.mkdtemp(prefix="composed_ck_")
-                np.savez(os.path.join(ckpt, "params.npz"),
-                         **{k: v.detach().cpu().numpy()
-                            for k, v in params.items()})
+                # tpulint: allow(TPU601 reason=the checkpoint is the step's declared host copy, made after the step span closes, by rank 0 only)
+                host = {k: v.detach().cpu().numpy() for k, v in params.items()}
+                np.savez(os.path.join(ckpt, "params.npz"), **host)
             metrics = {"loss": float(mean_loss), "step": step,
                        "mesh": {"pp": 2, "ep": 2, "fsdp": fsdp}}
             if overlap:

@@ -7,8 +7,8 @@ RAY_TPU_ADDRESS). `start` launches the port's daemon
 (`python -m ray_tpu_torch.daemon`) with the port's session directory;
 `start --tls` needs the `cryptography` package to generate the
 certificate, and says so plainly when it is absent (no plaintext
-fallback). The JAX package's `lint` subcommand is not here: it runs the
-tpulint passes of `_private/lint/`, which the port does not have yet.
+fallback). `lint` runs the port's tpulint (`_private/lint/`) without a
+cluster.
 """
 
 from __future__ import annotations
@@ -875,6 +875,13 @@ def main(argv=None) -> int:
     import tempfile
 
     argv = list(sys.argv[1:] if argv is None else argv)
+    # `lint` needs no cluster and owns its full flag set — delegate
+    # before the cluster-flavored parser sees the args.
+    if argv[:1] == ["lint"]:
+        from ray_tpu_torch._private.lint.cli import main as lint_main
+
+        return lint_main(argv[1:])
+
     p = argparse.ArgumentParser(prog="ray_tpu_torch")
     p.add_argument("--address", default=None, help="head address host:port")
     p.add_argument("--session-dir", default=None,
@@ -983,6 +990,13 @@ def main(argv=None) -> int:
     dp = sub.add_parser("dashboard")
     dp.add_argument("--port", type=int, default=8265)
     sub.add_parser("config")
+    # Dispatched above (before cluster flags); listed here so it shows
+    # in --help.
+    sub.add_parser(
+        "lint",
+        help="tpulint static analysis (see "
+             "`python -m ray_tpu_torch._private.lint --help`)",
+    )
 
     args = p.parse_args(argv)
     return {

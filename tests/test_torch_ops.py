@@ -150,7 +150,11 @@ def test_port_imports_neither_jax_nor_ray_tpu():
                  "autoscaler/scheduler.py", "util/actor_pool.py",
                  "util/queue.py", "util/multiprocessing.py",
                  "util/joblib.py", "util/dask_bridge.py",
-                 "experimental/tqdm_ray.py"):
+                 "experimental/tqdm_ray.py", "_private/xlang.py",
+                 "cross_language.py", "_native/cpp_client.py",
+                 "_private/lint/core.py", "_private/lint/cli.py",
+                 "_private/lint/protocol.py",
+                 "_private/lint/pass_host_sync.py"):
         assert REPO / "ray_tpu_torch" / name in files, name
     for name in ("api.py", "placement.py", "exceptions.py", "version.py",
                  "_native/shmstore.py", "_private/config.py",

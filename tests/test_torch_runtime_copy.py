@@ -35,6 +35,26 @@ COPIED = (
     "_private/rpc.py",
     "_private/test_utils.py",
     "_private/accelerators/accelerator.py",
+    "_private/xlang.py",
+    "_private/lint/__init__.py",
+    "_private/lint/__main__.py",
+    "_private/lint/baseline.py",
+    "_private/lint/dataflow.py",
+    "_private/lint/pass_async_locks.py",
+    "_private/lint/pass_collective.py",
+    "_private/lint/pass_exceptions.py",
+    "_private/lint/pass_handles.py",
+    "_private/lint/pass_journal.py",
+    "_private/lint/pass_lock_alias.py",
+    "_private/lint/pass_locks.py",
+    "_private/lint/pass_metric_schema.py",
+    "_private/lint/pass_pairing.py",
+    "_private/lint/pass_pubsub.py",
+    "_private/lint/pass_rank_flow.py",
+    "_private/lint/pass_rpc.py",
+    "_private/lint/pass_rpc_contract.py",
+    "_private/lint/protocol.py",
+    "cross_language.py",
     "autoscaler/autoscaler.py",
     "autoscaler/scheduler.py",
     "checkpoint/__init__.py",
@@ -49,7 +69,6 @@ COPIED = (
     "dag/node.py",
     "collective/flight_recorder.py",
     "data/__init__.py",
-    "data/arrow_block.py",
     "data/bigquery.py",
     "data/dataset.py",
     "data/datasource.py",
@@ -221,6 +240,12 @@ PORTED = {
          "_array_split", "_zeros", "_concat", "_numel", "_on_device",
          "_compress", "_dequantize_wire", "_decompress", "_contrib_array",
          "CpuGroup"},
+    ),
+    "data/arrow_block.py": (
+        "the extension type's registration also collects garbage at exit: "
+        "cycles left by reading a tensor column abort the process when "
+        "the interpreter's finalization collects them",
+        {"import atexit", "import gc", "_register"},
     ),
     "data/block.py": (
         "a torch.Tensor column (any device) becomes host numpy through "
@@ -419,8 +444,36 @@ PORTED = {
         "ray_tpu_torch_jobs, not /tmp/ray_tpu_jobs",
         {"import tempfile", "JobSubmissionClient.submit_job"},
     ),
+    "_private/lint/core.py": (
+        "the four jit rules (TPU602-605) and their passes are not ported: "
+        "the port traces and compiles nothing",
+        {"RULES", "_passes"},
+    ),
+    "_private/lint/cli.py": (
+        "--knob-docs renders the table under a ### heading, for the "
+        "README's section on the port",
+        {"knob_docs_markdown"},
+    ),
+    "_private/lint/pass_host_sync.py": (
+        "TPU601's explicit syncs are torch's: synchronize() on "
+        "torch.cuda, a stream or an event, and .cpu(), .tolist(), "
+        ".item() on a tensor, in place of block_until_ready/device_get",
+        {"STRONG_SYNCS", "STRONG_METHODS", "_sync_kind", "run",
+         "finalize", "_Visitor"},
+    ),
+    "_private/lint/pass_knobs.py": (
+        "README drift is read in the README's section on the port only, "
+        "where the README has one (the rest documents the JAX package's "
+        "knobs)",
+        {"PORT_SECTION", "_readme_region", "_doc_drift"},
+    ),
+    "_private/lint/pass_metrics.py": (
+        "the profiler span the TPU402 check knows is torch_profile, in "
+        "place of jax_profile",
+        {"_SPAN_CMS", "_GATE_TOKENS"},
+    ),
     "scripts.py": (
-        "no lint subcommand (_private/lint/ is not ported); start --tls "
+        "start --tls "
         "refuses plainly without the cryptography package when it must "
         "generate the certificate; the timeline's default path is under "
         "the temporary directory",
@@ -438,9 +491,7 @@ PORTED = {
 
 # ray_tpu_torch modules the copies import (at top level or lazily) that the
 # port does not have yet; each raises ModuleNotFoundError where reached.
-MISSING = {
-    "ray_tpu_torch._private.lint",
-}
+MISSING: set = set()
 
 
 def _strip_docstrings(tree: ast.AST) -> ast.AST:
