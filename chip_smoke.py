@@ -343,6 +343,33 @@ Phase 20 an autoscaled GPU node serving mini from an ActorPool: a runtime
          its total. The actors killed, the autoscaler terminates the idle
          node within its idle timeout plus a few intervals and the head
          counts no GPU. The P1 launches are not in the kernels line.
+Phase 21 the perf harnesses on the card (_private/llm_perf.py and
+         _private/perf.py): (a) llm_perf's three op rows at batch 64 (the
+         bench model's 8 / 4 heads of 128 and llama3_8b's 32 / 8 at
+         32-page tables, 16 slots of 2048 keys and 48 of 257; llama3_8b's
+         at 128-page tables, 8 slots of 7001 and 56 of 301), P1 held to
+         the gather path (paged_kv._gather_page_attention) on the same
+         inputs at phase 1's one-block limit (2e-2), each timed both ways
+         over P21_STEPS calls beside the bound of its live K/V bytes; (b)
+         decode@64 on bench at full width and depth (16 requests of 1500
+         tokens and 48 of 128, 64-token pages, 2048 pages), the kernel
+         engine then the gather engine (RAY_TPU_PAGED_ATTN 1 and 0),
+         P21_STEPS timed steps each: P1 = 24 x the kernel engine's decode
+         steps and none in the gather engine, the prefill's token equal in
+         every request, the first decoded token equal or, where bf16 makes
+         it differ, that request's streams held by stream_check, as are
+         both engines' streams of P21_CHECKED's 8 requests; (c) the
+         prefill stall on bench (9 slots, max_seq 8192, a 7936-token
+         prompt admitted among 8 decoding requests, 16 timed steps),
+         chunked (1024) then monolithic: the chunked engine's
+         prefill_chunks 16 (both long prompts), the monolithic's 0, P1 =
+         24 x each engine's decode steps, the 8 decode streams equal
+         across the engines (else each engine's held by stream_check),
+         the peak device memory of each; (d) perf.llm_decode_bench(
+         quick=True), mini on the card. llm_perf.check_floors holds the
+         readings: its relative floors (op speedups above 0.9, 1.0 and
+         1.5, decode@64 above 0.8, stall_ratio_p99 above 1.3) and the
+         card's ceilings on the op rows.
 Timing   each kernel at the main path's shapes (CUDA events, cold L2):
          its time, its plain version's, its bound (P1 also at the verify
          step's K = 4 and at batch 64, on lines of their own), and for the flash
@@ -364,11 +391,17 @@ both ranks' launches, and the pipeline's microbatch shape phase 9a runs,
 "flash_fwd_train_pp" and "flash_bwd_pp", with both ranks' launches, and
 phase 16's sweep trials at phase 4's shape, "flash_fwd_train_sweep" and
 "flash_bwd_sweep" (phase 4's timed rows, with every trial worker's
-launches); each
+launches), and phase 21's bench engines, "paged_attention_bench" (P1 at
+decode@64's shape, launches of 21b's kernel engine) and
+"paged_attention_stall" (P1 at the prefill stall's B=9, 128-page shape,
+launches of 21c's two engines; 21a's timing loops count in no row, 21d's
+mini launches count in "paged_attention_d64"); each
 with its own launches and error; the other phase 8a shapes on a line of
 their own; phase 9b's sp-gathered F1/F2 run at phase 4's shape, whose row
 carries phase 4's launches),
-a ``{"collectives": {...}}`` line with phase 11's readings, the card's
+a ``{"collectives": {...}}`` line with phase 11's readings, a
+``{"laps": {...}}`` line with each phase's seconds, a
+``{"llm_perf": {...}}`` line with phase 21's, the card's
 name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero;
 without a CUDA device it exits 1 before any phase.
@@ -6231,6 +6264,285 @@ def phase20(seed, m2, model="mini", device="cuda"):
             "steps": sum(steps), "s": total_s}
 
 
+# ------------------------------------------------------------ phase 21
+# The perf harnesses' serving rows (_private/llm_perf.py) and the
+# paged-decode row of _private/perf.py on the card. The op rows are
+# llm_perf's three shapes: the bench model's heads, llama3_8b's, and
+# llama3_8b's at an 8k-token table whose slots are mostly short.
+P21_OP_ROWS = {
+    "paged_attention_op@64_h8kv4": {"heads": (8, 4)},
+    "paged_attention_op@64_h32kv8": {"heads": (32, 8)},
+    "paged_attention_op@64_8k_window": {
+        "heads": (32, 8), "max_pages": 128, "long_len": 7000,
+        "short_len": 300, "long_every": 8},
+}
+P21_STEPS = 20  # timed steps of the op rows and of decode@64
+# decode@64's streams held by stream_check: 4 long requests, 4 short
+P21_CHECKED = (0, 4, 8, 12, 1, 2, 3, 5)
+
+
+# The op rows' kernel against the gather body: phase 1's one-block limit
+# for bf16 P1 (2e-2 per element) and a norm-relative limit. The gather
+# body rounds p against each row's max, the kernel against each page's
+# running max: in bf16 the split plain version and the gather body sit
+# 2.9e-3-3.0e-3 apart by norm at h8kv4 and h32kv8, and leaving out the
+# second-last page of every long slot moves the output 5.0e-2-5.3e-2 (CPU
+# readings, attention_op_case's inputs; PERF.md).
+P21_GATHER_NORM = 1e-2
+
+
+def p21_op_rows(steps, rows=None, device="cuda"):
+    """(a) Each op row: the kernel held to the split plain version at the
+    wrapper's split (PAGED_BF16_TOL, PAGED_BF16_NORM, as phase 1 holds
+    bf16 P1) and to the gather body (2e-2, P21_GATHER_NORM) on the same
+    inputs, then llm_perf's amortized timing of both, beside the bound of
+    the live K/V bytes. The timing loops' launches are a measurement's,
+    counted in no row of the kernels line."""
+    from ray_tpu_torch._private import llm_perf
+    from ray_tpu_torch.ops.paged_attention import (
+        kernel_split,
+        paged_attention,
+        paged_attention_split_reference,
+    )
+
+    out = {}
+    atol, rtol = PAGED_BF16_TOL
+    for name, kw in (rows or P21_OP_ROWS).items():
+        args, gather = llm_perf.attention_op_case(device=device, **kw)
+        got = paged_attention(*args)
+        pps = kernel_split(*args[:2], args[3]) if device == "cuda" else 1
+        err = compare(f"21a {name}: kernel vs split ({pps} pages/split)",
+                      got, paged_attention_split_reference(*args, pps),
+                      atol, rtol, PAGED_BF16_NORM)
+        err = max(err, compare(f"21a {name}: kernel vs gather path", got,
+                               gather(*args), 2e-2, 2e-2, P21_GATHER_NORM))
+        del got
+        q, kp = args[0], args[1]
+        live = int((args[4].long() + 1).sum())  # K = 1: positions + 1 keys
+        elt = kp.element_size()
+        nbytes = (2 * live * kp.shape[1] * kp.shape[3] * elt
+                  + 2 * q.numel() * elt + args[3].numel() * 4
+                  + args[4].numel() * 4)
+        bound_ms, by = bound_of(nbytes, 4 * q.shape[2] * q.shape[3] * live)
+        del args, gather
+        row = llm_perf.bench_attention_op_batch64(steps=steps, device=device,
+                                                  **kw)
+        row.update(bound_us=bound_ms * 1e3, bound_by=by, live_tokens=live,
+                   max_abs_err=err)
+        out[name] = row
+        print(f"  21a {name}: kernel_us {row['kernel_us']:.1f}, gather_us "
+              f"{row['gather_us']:.1f}, speedup {row['speedup']:.3f}; bound "
+              f"{row['bound_us']:.1f} us by {by} ({live} live tokens)")
+    return out
+
+
+def p21_streams(eng, requests):
+    """The token streams of ``requests`` ((request id, prompt) pairs),
+    still active in ``eng``."""
+    by_id = {r.request_id: list(r.out_tokens) for r in eng._active.values()}
+    return [by_id[rid] for rid, _ in requests]
+
+
+def p21_kernel_row(cfg, positions, name, where, max_pages=32, err_seed=11):
+    """A kernels-line row of phase 21: P1 at one of its engines' shapes
+    (K=1, the bench model's heads, ``max_pages``-page tables, the engine's
+    positions after its timed steps) held to the split plain version at
+    the wrapper's split as phase 1 holds bf16 P1 (poisoned stale cells),
+    then timed as timing_serving times P1. paged_attention_bench is
+    decode@64's (B=64, 32 pages), paged_attention_stall the prefill
+    stall's (B=9, 128 pages)."""
+    from ray_tpu_torch.ops.paged_attention import (
+        kernel_split,
+        paged_attention,
+        paged_attention_split_reference,
+    )
+
+    args = paged_case(len(positions), 1, positions, max_pages, cfg.dtype,
+                      seed=err_seed, n_heads=cfg.n_heads,
+                      n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim)
+    pps = kernel_split(*args[:2], args[3])
+    atol, rtol = PAGED_BF16_TOL
+    err = compare(f"21 {name} vs split ({pps} pages/split)",
+                  paged_attention(*args),
+                  paged_attention_split_reference(*args, pps), atol, rtol,
+                  PAGED_BF16_NORM)
+    del args
+    r = time_paged(cfg, positions, 1, max_pages=max_pages)
+    print(f"  {name} at {where}: {r.pop('pages_per_split')} pages per "
+          f"split, host time per wrapper call {r.pop('host_us'):.1f} us")
+    return dict(r, max_abs_err=err)
+
+
+def phase21(seed, model="bench", mini="mini", device="cuda",
+            steps=P21_STEPS):
+    """llm_perf's rows (a)-(c) and perf.llm_decode_bench (d) on the card,
+    with the checks the docstring lists; returns the readings and the P1
+    launches of (b) (the kernels line's paged_attention_bench), of (c)
+    (paged_attention_stall) and of (d) (added to paged_attention_d64)."""
+    from ray_tpu_torch._private import llm_perf, perf
+    from ray_tpu_torch.models.llama import PRESETS, init_params
+
+    t0 = time.perf_counter()
+    print("phase 21: the perf harnesses' serving rows")
+    ops = p21_op_rows(steps, device=device)
+
+    cfg = PRESETS[model]
+    params = init_params(cfg, seed, device=device, dtype=cfg.dtype)
+    sync()
+    seen = {}
+
+    def decode_inspect(label, eng, requests):
+        sync()
+        seen[label] = {
+            "p1": counts()[0], "steps": eng.stats()["decode_steps"],
+            "kernel": eng.paged_attn_kernel,
+            "streams": p21_streams(eng, requests),
+            "prompts": [p for _, p in requests],
+            "positions": [int(eng._positions[i]) for i in range(64)],
+        }
+
+    reset_counts()
+    decode = llm_perf.bench_decode_batch64(params, steps=steps, model=model,
+                                           device=device,
+                                           inspect=decode_inspect)
+    kern, gath = seen["kernel"], seen["gather"]
+    prompts = kern["prompts"]
+    check(kern["kernel"] and not gath["kernel"],
+          "21b: the engines did not take the kernel and the gather path")
+    check(kern["p1"] > 0 and kern["p1"] == cfg.n_layers * kern["steps"],
+          f"21b: P1 launched {kern['p1']} times for {kern['steps']} decode "
+          f"steps of the kernel engine")
+    check(gath["p1"] == kern["p1"],
+          f"21b: the gather engine launched P1 {gath['p1'] - kern['p1']} "
+          "times")
+    first = [(a[:2], b[:2]) for a, b in zip(kern["streams"],
+                                            gath["streams"])]
+    check(all(a[0] == b[0] for a, b in first),
+          "21b: the prefill's token differs between the engines")
+    differ = [i for i, (a, b) in enumerate(first) if a != b]
+    held = sorted(set(P21_CHECKED) | set(differ))
+    for label, s in (("kernel", kern), ("gather", gath)):
+        stream_check(cfg, params, [prompts[i] for i in held],
+                     [s["streams"][i] for i in held],
+                     f"21b decode@64 {label} engine", device)
+    print(f"  21b decode@64 ({model}, {cfg.n_layers} layers): kernel "
+          f"{decode['kernel']['tok_per_s']:.1f} tok/s, "
+          f"{decode['kernel']['ms_per_step']:.2f} ms/step; gather "
+          f"{decode['gather']['tok_per_s']:.1f} tok/s, "
+          f"{decode['gather']['ms_per_step']:.2f} ms/step; speedup "
+          f"{decode['speedup']:.3f}; first decoded token equal in "
+          f"{64 - len(differ)} of 64 requests, {len(held)} requests' streams "
+          f"held by stream_check; P1 {kern['p1']} = {cfg.n_layers} x "
+          f"{kern['steps']} decode steps, the gather engine 0")
+
+    stall_seen = {}
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+    def stall_inspect(label, eng, requests):
+        sync()
+        peak = (torch.cuda.max_memory_allocated() if device == "cuda"
+                else 0)
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        stall_seen[label] = {
+            "p1": counts()[0], "steps": eng.stats()["decode_steps"],
+            "chunks": eng.stats()["prefill_chunks"],
+            "streams": p21_streams(eng, requests),
+            "prompts": [p for _, p in requests],
+            "positions": [int(eng._positions[i]) for i in range(9)],
+            "peak_gib": peak / 2**30,
+        }
+
+    p1_before = counts()[0]
+    stall = llm_perf.bench_prefill_stall(params, model=model, device=device,
+                                         inspect=stall_inspect)
+    ch, mono = stall_seen["chunked"], stall_seen["monolithic"]
+    want_chunks = 2 * -(-7936 // 1024)  # the warm and the timed prompt
+    check(ch["chunks"] == want_chunks,
+          f"21c: the chunked engine ran {ch['chunks']} prefill chunks, not "
+          f"{want_chunks}")
+    check(mono["chunks"] == 0,
+          f"21c: the monolithic engine ran {mono['chunks']} prefill chunks")
+    stall_p1 = mono["p1"] - p1_before
+    check(ch["p1"] - p1_before == cfg.n_layers * ch["steps"]
+          and mono["p1"] - ch["p1"] == cfg.n_layers * mono["steps"],
+          f"21c: P1 launches {ch['p1'] - p1_before} / "
+          f"{mono['p1'] - ch['p1']} for {ch['steps']} / {mono['steps']} "
+          "decode steps")
+    # The 8 decode requests, then the 7936-token prompt: its stream starts
+    # at the last chunk in the chunked engine, at admission in the other.
+    same = ch["streams"][:8] == mono["streams"][:8]
+    if not same:
+        for label, s in (("chunked", ch), ("monolithic", mono)):
+            stream_check(cfg, params, s["prompts"][:8], s["streams"][:8],
+                         f"21c {label} engine", device)
+    long_ch, long_mono = ch["streams"][8], mono["streams"][8]
+    check(len(long_ch) > 0 and len(long_mono) > 0
+          and long_ch[0] == long_mono[0],
+          f"21c: the long prompt's first token differs between the chunked "
+          f"and the monolithic prefill ({long_ch[:1]} / {long_mono[:1]})")
+    # Chunked prefill (a page gather per chunk, RoPE past bench's max_seq)
+    # and P1 over the long slot's 125 pages, against the dense prefill.
+    for label, s in (("chunked", ch), ("monolithic", mono)):
+        stream_check(cfg, params, s["prompts"][8:], s["streams"][8:],
+                     f"21c {label} engine, the 7936-token prompt", device)
+    long_same = next((i for i, (a, b) in enumerate(zip(long_ch, long_mono))
+                      if a != b), min(len(long_ch), len(long_mono)))
+    print(f"  21c prefill stall ({model}, 7936-token prompt, chunk 1024): "
+          + "; ".join(f"{k} p50 {stall[k]['p50_ms']:.2f} ms, p99 "
+                      f"{stall[k]['p99_ms']:.2f} ms, max "
+                      f"{stall[k]['max_ms']:.2f} ms, peak memory "
+                      f"{stall_seen[k]['peak_gib']:.2f} GiB"
+                      for k in ("chunked", "monolithic"))
+          + f"; stall_ratio_p99 {stall['stall_ratio_p99']:.3f}; prefill "
+          f"chunks {ch['chunks']} / {mono['chunks']}; the 8 decode streams "
+          + ("equal across the engines" if same else
+             "differ, each engine's held by stream_check")
+          + f"; the long prompt's stream {len(long_ch)} / {len(long_mono)} "
+          f"tokens, the first {long_same} equal, both held by stream_check")
+    del params
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    reset_counts()
+    mini_steps = []
+    llm_row = perf.llm_decode_bench(
+        quick=True, device=device,
+        inspect=lambda eng: mini_steps.append(eng.stats()["decode_steps"]))[0]
+    sync()
+    mini_p1 = counts()[0]
+    mini_layers = PRESETS[mini].n_layers
+    check(mini_p1 > 0 and mini_p1 == mini_layers * mini_steps[0],
+          f"21d: P1 launched {mini_p1} times serving {mini} for "
+          f"{mini_steps[0]} decode steps x {mini_layers} layers")
+    print(f"  21d perf.llm_decode_bench(quick=True): {llm_row}; P1 "
+          f"{mini_p1} launches = {mini_layers} x {mini_steps[0]} decode "
+          "steps")
+
+    results = {**{k: {n: v for n, v in r.items()
+                      if n in ("kernel_us", "gather_us", "speedup")}
+                  for k, r in ops.items()},
+               "decode@64": decode, "prefill_stall": stall}
+    try:
+        llm_perf.check_floors(results)
+    except AssertionError as e:
+        check(False, f"21: llm_perf floor or ceiling not met: {e}")
+    total_s = time.perf_counter() - t0
+    print(f"  21 floors and ceilings hold; phase 21 {total_s:.1f} s "
+          f"[{card_line()}]")
+    return {"ops": ops, "decode": decode, "stall": stall,
+            "llm_decode_bench": llm_row,
+            "stall_peak_gib": {k: v["peak_gib"]
+                               for k, v in stall_seen.items()},
+            "first_token_equal": 64 - len(differ), "stall_same": same,
+            "long_equal_tokens": long_same,
+            "bench_p1": kern["p1"], "stall_p1": stall_p1, "mini_p1": mini_p1,
+            "bench_positions": kern["positions"],
+            "stall_positions": ch["positions"], "s": total_s}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -6438,10 +6750,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.time()
     laps = [t_start]
+    lap_s = {}  # label -> seconds, printed again near the end
 
     def lap(label):
         laps.append(time.time())
-        print(f"{label} took {laps[-1] - laps[-2]:.1f} s")
+        lap_s[label] = round(laps[-1] - laps[-2], 1)
+        print(f"{label} took {lap_s[label]:.1f} s")
 
     card = card_line()
     print(f"phase 0: card {card}; torch {torch.__version__}, "
@@ -6557,6 +6871,16 @@ def main() -> int:
     lap("phase 17, with phase 19 during 17c")
     p20 = phase20(args.seed, m2)
     lap("phase 20")
+    gc.collect()
+    torch.cuda.empty_cache()
+    p21 = phase21(args.seed)
+    rows["paged_attention_bench"] = p21_kernel_row(
+        PRESETS["bench"], p21["bench_positions"], "paged_attention_bench",
+        "decode@64's last step")
+    rows["paged_attention_stall"] = p21_kernel_row(
+        PRESETS["bench"], p21["stall_positions"], "paged_attention_stall",
+        "the chunked stall engine's last step", max_pages=128)
+    lap("phase 21")
     prof = p4["profile"]
     print(f"train: {p4['tokens_per_s']:.1f} tokens/s, "
           f"{p4['peak_share']:.2%} of dense bf16 peak, step "
@@ -6762,6 +7086,20 @@ def main() -> int:
           f"actors (= 12 x {p20['steps']}; not in the kernels line); the "
           f"idle node reaped {p20['reap_s']:.2f} s after the kills; phase "
           f"20 {p20['s']:.1f} s [{card}]")
+    d21 = p21["decode"]
+    print(f"phase 21, the perf harnesses: op rows at batch 64 (kernel / "
+          f"gather us, speedup, bound us) "
+          + "; ".join(f"{k} {v['kernel_us']:.1f} / {v['gather_us']:.1f}, "
+                      f"{v['speedup']:.3f}, {v['bound_us']:.1f}"
+                      for k, v in p21["ops"].items())
+          + f"; decode@64 on bench {d21['kernel']['tok_per_s']:.1f} tok/s "
+          f"through P1, {d21['gather']['tok_per_s']:.1f} through the gather "
+          f"path (speedup {d21['speedup']:.3f}); prefill stall p99 chunked "
+          f"{p21['stall']['chunked']['p99_ms']:.2f} ms, monolithic "
+          f"{p21['stall']['monolithic']['p99_ms']:.2f} ms (ratio "
+          f"{p21['stall']['stall_ratio_p99']:.3f}); perf's paged decode on "
+          f"mini {p21['llm_decode_bench']['tokens_per_s']} tok/s; phase 21 "
+          f"{p21['s']:.1f} s [{card}]")
     rows.update({k: tp_rows[k] for k in TP_MAIN_ROWS})
     rows.update(p9["pipeline"]["rows"])
     # Phase 16's trials run the bench step at phase 4's shape: the same
@@ -6774,7 +7112,9 @@ def main() -> int:
     # the dense prefill (phase 3) and in training (phase 4).
     launches = {"paged_attention": p2["launches"],
                 "paged_attention_d64": (m2["launches"] + p19["p1"]
-                                        + p19["cpp"]["p1"]),
+                                        + p19["cpp"]["p1"] + p21["mini_p1"]),
+                "paged_attention_bench": p21["bench_p1"],
+                "paged_attention_stall": p21["stall_p1"],
                 "paged_attention_p16": p2_pages[16]["launches"],
                 "paged_attention_p32": p2_pages[32]["launches"],
                 "paged_attention_p4": p2_pages[4]["launches"],
@@ -6800,6 +7140,8 @@ def main() -> int:
         "paged_attention_p16": paged,
         "paged_attention_p32": paged,
         "paged_attention_p4": paged,
+        "paged_attention_bench": paged,
+        "paged_attention_stall": paged,
         "flash_fwd": fwd,
         "flash_fwd_train": fwd,
         "flash_bwd": ("ray_tpu_torch/csrc/flash_bwd.cu",
@@ -6826,6 +7168,16 @@ def main() -> int:
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"collectives": p11}))
+    print(json.dumps({"laps": lap_s}))
+    print(json.dumps({"llm_perf": {
+        **{k: v for k, v in p21["ops"].items()},
+        "decode@64": p21["decode"], "prefill_stall": p21["stall"],
+        "stall_peak_gib": p21["stall_peak_gib"],
+        "llm_decode_bench": p21["llm_decode_bench"],
+        "first_token_equal": p21["first_token_equal"],
+        "stall_streams_equal": p21["stall_same"],
+        "long_prompt_equal_tokens": p21["long_equal_tokens"],
+        "s": p21["s"]}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

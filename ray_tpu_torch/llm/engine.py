@@ -9,8 +9,11 @@ active slot with one decode step.
 On a CUDA device the paged engine reads its pool through the paged
 attention kernel and the dense engine prefills through the flash kernel
 (for lengths the gate admits); on the CPU both take their plain PyTorch
-versions. Sampling draws from a ``torch.Generator`` on the engine's
-device, seeded from ``seed``.
+versions. ``RAY_TPU_PAGED_ATTN`` read at construction overrides the
+paged route on any device: ``0`` decodes and verifies through the gather
+path (``paged_kv._gather_page_attention``), ``1`` through the wrapper;
+``paged_attn_kernel`` reports the route taken. Sampling draws from a
+``torch.Generator`` on the engine's device, seeded from ``seed``.
 
 With ``mesh=`` (parallel/mesh.py, more than one rank) the engine is
 tensor-parallel SPMD, one process per device: every rank builds the same
@@ -29,6 +32,7 @@ from __future__ import annotations
 
 import contextlib
 import itertools
+import os
 import threading
 import time
 from dataclasses import dataclass, field
@@ -158,9 +162,16 @@ class LLMEngine:
                 mesh=self.mesh,
             )
             self.max_pages_per_seq = -(-self.max_seq // page_size)
-            # The paged attention kernel on CUDA; its plain version on
-            # the CPU.
-            self.paged_attn_kernel = on_cuda
+            # The kernel on CUDA, the gather path on the CPU, unless
+            # RAY_TPU_PAGED_ATTN says 0 (gather) or 1 (the wrapper: on the
+            # CPU its plain version).
+            # tpulint: allow(TPU703 reason=emergency kernel off-switch read in library code that must work without a live runtime or config registry)
+            env_flag = os.environ.get("RAY_TPU_PAGED_ATTN", "").strip()
+            if env_flag in ("0", "1"):
+                use_kernel = env_flag == "1"
+            else:
+                use_kernel = on_cuda
+            self.paged_attn_kernel = use_kernel
             # Chunked prefill: a prompt longer than the chunk is
             # prefilled one page-aligned chunk per step(), interleaved
             # with decode.
@@ -173,10 +184,10 @@ class LLMEngine:
             self._prefill_chunk_fn = partial(paged_prefill_chunk, cfg=cfg)
             self._prefill_paged = partial(paged_prefill, cfg=cfg)
             self._decode_paged = partial(
-                paged_decode, cfg=cfg, use_kernel=on_cuda
+                paged_decode, cfg=cfg, use_kernel=use_kernel
             )
             self._verify_paged = partial(
-                paged_verify, cfg=cfg, use_kernel=on_cuda
+                paged_verify, cfg=cfg, use_kernel=use_kernel
             )
             self._temps = np.zeros((max_batch,), np.float32)
         else:

@@ -133,7 +133,8 @@ COPIED = (
 )
 
 # module -> (reason, top-level names that may differ). A name is a def or
-# class, an assigned name, or "import <module>" for an import statement;
+# class, an assigned name, "import <module>" for an import statement, or
+# "__main__" for the module's `if __name__ == "__main__":` block;
 # "Class.method" lets one method of a class differ, and the rest of the
 # class must equal its source.
 PORTED = {
@@ -483,6 +484,27 @@ PORTED = {
         "num_gpus maps to the GPU resource, as num_tpus maps to TPU",
         {"_normalize_options"},
     ),
+    "_private/scale_smoke.py": (
+        "the command line's journal directory defaults to a new one under "
+        "the temporary directory, not the fixed /tmp/ray_tpu_scale, so "
+        "that two heads on one machine never share one journal",
+        {"import tempfile", "main"},
+    ),
+    "_private/scale_sim.py": (
+        "fake nodes advertise GPUs in place of TPUs; the head CLI and the "
+        "RTT sampler's subprocesses are the port's, which set no JAX "
+        "platform",
+        {"FakeNode", "HeadProc", "RttSampler"},
+    ),
+    "_private/perf.py": (
+        "the paged-decode row serves tiny on the CPU and mini on the card "
+        "(the paged kernel takes head_dim 64 and 128), the multi-process "
+        "allreduce is a torch.distributed gloo world around NcclDistGroup, "
+        "the mesh allreduce is NcclMeshGroup over the visible GPUs; main "
+        "and the command line take the device",
+        {"main", "llm_decode_bench", "collective_multiproc_bench",
+         "collective_bench", "__main__"},
+    ),
     "placement.py": (
         "a slice's bundles hold GPUs",
         {"slice_placement_group"},
@@ -520,6 +542,9 @@ def _key(node: ast.stmt) -> str:
         return "import " + ",".join(a.name for a in node.names)
     if isinstance(node, ast.ImportFrom):
         return f"import {node.module}"
+    if (isinstance(node, ast.If)
+            and ast.unparse(node.test) == "__name__ == '__main__'"):
+        return "__main__"
     return ast.dump(node)
 
 
