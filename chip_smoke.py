@@ -133,7 +133,9 @@ Phase 10 the port's runtime (ray_tpu_torch.init) on the card: the node
          a fresh process); a num_gpus=1 task runs F1 in its own worker at
          phase 3's prefill shape (B=1, S=1024, 32 / 8 heads of 128, bf16;
          O held to the plain version in fp32 by FLASH_ORACLE_*, one
-         launch); mini's parameters go into the object store as one put
+         launch), its lease bound to the node's one card
+         (CUDA_VISIBLE_DEVICES naming it, CUDA_DEVICE_ORDER=PCI_BUS_ID,
+         one CUDA device); mini's parameters go into the object store as one put
          of a numpy tree, and a num_gpus=1 actor builds mini's paged
          LLMEngine from them and serves phase 2's mini prompts, greedy:
          its streams must equal phase 2's token for token and its P1 and
@@ -143,8 +145,9 @@ Phase 10 the port's runtime (ray_tpu_torch.init) on the card: the node
          num_gpus=1 task must wait, and run once the actor is killed;
          the actor's memory sample (runtime/memory.py) must read its
          torch.cuda.memory_allocated within 1% and claim the paged pool's
-         bytes, and the head's memory ledger must show it. Prints the
-         init, first GPU task, actor cold start and decode times.
+         bytes, and the head's memory ledger must show it; two
+         num_gpus=0.5 actors must see the same card. Prints the init,
+         first GPU task, actor cold start and decode times.
 Phase 11 the collective data plane and the device-object transport:
          (a) every verb and mode of NcclMeshGroup (allreduce sum, max,
          min, product, ring, tree, int8, partial with one rank masked,
@@ -2101,9 +2104,10 @@ def phase8a(positions):
     return rows
 
 
-def rank_serve(seed, tp):
+def rank_serve(seed, tp, inspect=None):
     """One rank of llama3_8b served with mesh {"tp": tp}: phase 2's
-    prompts, paged, 32 greedy tokens."""
+    prompts, paged, 32 greedy tokens. ``inspect(engine, prompts)``, when
+    given, runs after them; its answer is the result's "inspect"."""
     from ray_tpu_torch.llm.engine import LLMEngine, SamplingParams
     from ray_tpu_torch.models.llama import PRESETS, init_params
     from ray_tpu_torch.parallel.mesh import make_mesh
@@ -2128,6 +2132,8 @@ def rank_serve(seed, tp):
                kv_heads=eng.cache["k"].shape[2],
                decode_tps=sum(step_tokens[1:]) / sum(step_s[1:]),
                peak=torch.cuda.max_memory_allocated())
+    if inspect is not None:
+        out["inspect"] = inspect(eng, prompts)
     del eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -2151,14 +2157,16 @@ def two_rank_bench():
 
 
 def rank_train(seed, sizes, batch=16, seq=2048, steps=2, cfg=None,
-               keep_state=False):
+               keep_state=False, inspect=None):
     """One rank of the first ``steps`` train steps of ``cfg`` (by default
     :func:`two_rank_bench`) under mesh ``sizes`` (axis
     sizes for make_mesh, or a function that builds the mesh; None: one
     process, no mesh): phase 4's weights (from the seed) and batch (the
     whole batch; the step cuts it over the data axes), phase 4's
     optimizer with no warm-up (the first update at the full learning
-    rate). ``keep_state`` returns the state too (phase 12c saves it)."""
+    rate). ``keep_state`` returns the state too (phase 12c saves it);
+    ``inspect(state, step, data)``, when given, runs after the steps and
+    its answer is the result's "inspect"."""
     from ray_tpu_torch.parallel.mesh import make_mesh
     from ray_tpu_torch.train.step import (
         init_train_state,
@@ -2192,6 +2200,8 @@ def rank_train(seed, sizes, batch=16, seq=2048, steps=2, cfg=None,
     _, f1, f2 = counts()
     out = dict(losses=losses, norms=norms, aux=aux, wall=wall, f1=f1, f2=f2,
                peak=torch.cuda.max_memory_allocated())
+    if inspect is not None:
+        out["inspect"] = inspect(state, step, data)
     if keep_state:
         out["state"] = state
     del state, step
@@ -2213,17 +2223,24 @@ def _serve_and_train(seed):
     return out
 
 
-def _rank_main(rank, world, rdzv, results, work, args):
-    """A spawned rank: its GPU is cuda:0, shared with the other rank; gloo
-    carries the collectives (copying CUDA tensors through host memory).
-    Puts (rank, True, ``work(*args)``) or (rank, False, the traceback) on
-    ``results``."""
+def _rank_main(rank, world, rdzv, results, work, args, backend):
+    """A spawned rank. ``backend`` "nccl": rank r on cuda:r, a card of its
+    own, NCCL carrying the collectives on the card; "gloo": every rank on
+    cuda:0, shared, gloo carrying the collectives (copying CUDA tensors
+    through host memory). Puts (rank, True, ``work(*args)``) or (rank,
+    False, the traceback) on ``results``."""
     import torch.distributed as dist
 
     try:
-        dist.init_process_group("gloo", init_method=rdzv, world_size=world,
-                                rank=rank)
-        torch.cuda.set_device(0)
+        if backend == "nccl":
+            torch.cuda.set_device(rank)
+            dist.init_process_group("nccl", init_method=rdzv,
+                                    world_size=world, rank=rank,
+                                    device_id=torch.device("cuda", rank))
+        else:
+            dist.init_process_group("gloo", init_method=rdzv,
+                                    world_size=world, rank=rank)
+            torch.cuda.set_device(0)
         results.put((rank, True, work(*args)))
     except BaseException:  # the parent fails the phase with this text
         import traceback
@@ -2234,35 +2251,41 @@ def _rank_main(rank, world, rdzv, results, work, args):
             dist.destroy_process_group()
 
 
-def run_two_ranks(work, args, timeout=600):
-    """Spawn two ranks running ``work(*args)`` (a module-level function),
-    wait for both results (at most ``timeout`` seconds), kill whatever is
-    left, raise on any failure."""
+def run_ranks(work, args, world=2, backend="gloo", timeout=600):
+    """Spawn ``world`` ranks running ``work(*args)`` (a module-level
+    function) on ``backend`` (:func:`_rank_main`; "nccl" needs ``world``
+    cards), wait for every result (at most ``timeout`` seconds), kill
+    whatever is left, raise on any failure. Returns the results in rank
+    order."""
     import multiprocessing as mp
     import os
     import queue
     import tempfile
 
+    if backend == "nccl" and torch.cuda.device_count() < world:
+        raise SmokeFailure(f"{world} NCCL ranks need {world} cards; this "
+                           f"machine has {torch.cuda.device_count()}")
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_rdzv_") as tmp:
         rdzv = "file://" + os.path.join(tmp, "rendezvous")
         procs = [ctx.Process(target=_rank_main,
-                             args=(r, 2, rdzv, results, work, args))
-                 for r in range(2)]
+                             args=(r, world, rdzv, results, work, args,
+                                   backend))
+                 for r in range(world)]
         for p in procs:
             p.start()
         deadline = time.monotonic() + timeout
         out = {}
         try:
-            while len(out) < 2:
+            while len(out) < world:
                 try:
                     rank, ok, payload = results.get(
                         timeout=max(deadline - time.monotonic(), 1.0))
                 except queue.Empty:
-                    raise SmokeFailure(f"{2 - len(out)} of two ranks gave "
-                                       f"no result in {timeout} s")
-                check(ok, f"rank {rank} of two failed:\n{payload}")
+                    raise SmokeFailure(f"{world - len(out)} of {world} ranks "
+                                       f"gave no result in {timeout} s")
+                check(ok, f"rank {rank} of {world} failed:\n{payload}")
                 out[rank] = payload
         finally:
             for p in procs:
@@ -2270,7 +2293,7 @@ def run_two_ranks(work, args, timeout=600):
                 if p.is_alive():
                     p.kill()
                     p.join()
-    return [out[0], out[1]]
+    return [out[r] for r in range(world)]
 
 
 def phase8b(seed, p4, p2_outs):
@@ -2287,7 +2310,7 @@ def phase8b(seed, p4, p2_outs):
     print(f"  bench in one process, no warm-up: losses {single['losses']}, "
           f"grad_norms {single['norms']}")
     t0 = time.time()
-    ranks = run_two_ranks(_serve_and_train, (seed,))
+    ranks = run_ranks(_serve_and_train, (seed,), world=2, backend="gloo")
     print(f"  two ranks ran in {time.time() - t0:.1f} s")
     cfg = PRESETS["llama3_8b"]
     sv = [r["serve"] for r in ranks]
@@ -2498,21 +2521,34 @@ def _leaf_dict(params):
             **{"blocks/" + k: v for k, v in params["blocks"].items()}}
 
 
-def rank_pipeline(seed):
-    """One rank of 9a: ``pipeline_loss_fn`` over mesh {"pp": 2} with 4
-    microbatches; the rank holds its stage's 12 layers (DTensors placed
-    over pp, stacked [2, 12, ...]) and the embedding, final norm and
-    lm_head whole. Returns the loss, each parameter's gradient norm (a
-    stage leaf's summed over pp), the flash launches and the wall time."""
+def mesh_backends(mesh):
+    """The process-group backend of each of ``mesh``'s axes of more than
+    one rank."""
+    import torch.distributed as dist
+
+    return {axis: dist.get_backend(mesh.get_group(axis))
+            for axis, size in zip(mesh.mesh_dim_names, mesh.shape)
+            if size > 1}
+
+
+def rank_pipeline(seed, stages=PIPE_STAGES, repeats=1):
+    """One rank of 9a: ``pipeline_loss_fn`` over mesh {"pp": ``stages``}
+    with 4 microbatches; the rank holds its stage's layers (DTensors
+    placed over pp, stacked [stages, 24 / stages, ...]) and the embedding,
+    final norm and lm_head whole. The loss and gradients run ``repeats``
+    times on the same weights; returns the first run's loss and each
+    parameter's gradient norm (a stage leaf's summed over pp), the flash
+    launches of the first run, each run's wall time and the mesh's
+    backends."""
     import torch.distributed as dist
 
     from ray_tpu_torch.parallel import make_mesh, mesh_spec, pipeline_loss_fn
     from ray_tpu_torch.parallel.sharding import distribute, local
 
     cfg, params, tokens = _pipeline_inputs(seed)
-    mesh = make_mesh({"pp": PIPE_STAGES})
+    mesh = make_mesh({"pp": stages})
     params["blocks"] = {
-        k: distribute(v.reshape(PIPE_STAGES, -1, *v.shape[1:]), mesh,
+        k: distribute(v.reshape(stages, -1, *v.shape[1:]), mesh,
                       mesh_spec("pp"))
         for k, v in params["blocks"].items()}
     gc.collect()
@@ -2521,17 +2557,23 @@ def rank_pipeline(seed):
     for t in leaves.values():
         t.requires_grad_(True)
     torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    t0 = time.perf_counter()
-    x, targets, stage_fn, loss_head = _pipeline_pieces(cfg, params, tokens)
-    loss = pipeline_loss_fn(params["blocks"],
-                            {"inputs": x, "targets": targets}, stage_fn,
-                            loss_head, mesh=mesh,
-                            num_microbatches=PIPE_MICRO)
-    grads = torch.autograd.grad(loss, list(leaves.values()))
-    sync()
-    wall = time.perf_counter() - t0
-    _, f1, f2 = counts()
+    walls = []
+    for i in range(repeats):
+        reset_counts()
+        t0 = time.perf_counter()
+        x, targets, stage_fn, loss_head = _pipeline_pieces(cfg, params,
+                                                           tokens)
+        loss = pipeline_loss_fn(params["blocks"],
+                                {"inputs": x, "targets": targets}, stage_fn,
+                                loss_head, mesh=mesh,
+                                num_microbatches=PIPE_MICRO)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        sync()
+        walls.append(time.perf_counter() - t0)
+        if i == 0:
+            _, f1, f2 = counts()
+            first_loss, first_grads = loss, grads
+    loss, grads, wall = first_loss, first_grads, walls[0]
     norms = {}
     for k, g in zip(leaves, grads):
         sq = local(g).float().square().sum()
@@ -2539,8 +2581,9 @@ def rank_pipeline(seed):
             dist.all_reduce(sq, group=mesh.get_group("pp"))
         norms[k] = float(sq.sqrt())
     out = dict(loss=loss.item(), norms=norms, f1=f1, f2=f2, wall=wall,
-               peak=torch.cuda.max_memory_allocated())
-    del params, leaves, grads, loss
+               walls=walls, peak=torch.cuda.max_memory_allocated(),
+               backends=mesh_backends(mesh))
+    del params, leaves, grads, loss, first_loss, first_grads
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -2703,7 +2746,7 @@ def phase9(seed, p8):
                  f"losses {single[name]['losses']}, grad_norms "
                  f"{single[name]['norms']}"))
     t0 = time.time()
-    ranks = run_two_ranks(_phase9_work, (seed,))
+    ranks = run_ranks(_phase9_work, (seed,), world=2, backend="gloo")
     runs = phase9_runs()
     print(f"  two ranks ran in {time.time() - t0:.1f} s")
     out = {}
@@ -2801,9 +2844,19 @@ def detection_without_cuda():
 PHASE10_SHAPE = (1, 1024, 32, 8, 128)  # phase 3's prefill: B, S, H, Hkv, D
 
 
+def lease_view():
+    """What a leased worker sees of the cards: its
+    ``CUDA_VISIBLE_DEVICES`` and ``CUDA_DEVICE_ORDER``."""
+    import os
+
+    return (os.environ.get("CUDA_VISIBLE_DEVICES"),
+            os.environ.get("CUDA_DEVICE_ORDER"))
+
+
 def flash_task(seed):
     """Phase 10's GPU task: F1 at phase 3's prefill shape on inputs drawn
-    from ``seed`` in this worker; returns (pid, O, LSE, launches)."""
+    from ``seed`` in this worker; returns (pid, O, LSE, launches, the
+    lease's view of the cards and how many CUDA shows)."""
     import os
 
     from ray_tpu_torch.ops.flash_attention import flash_attention_forward
@@ -2813,7 +2866,17 @@ def flash_task(seed):
     flash_attention_forward.launches = 0
     o, lse = flash_attention_forward(q, k, v, True)
     sync()
-    return os.getpid(), o, lse, flash_attention_forward.launches
+    return (os.getpid(), o, lse, flash_attention_forward.launches,
+            lease_view(), torch.cuda.device_count())
+
+
+class LeaseView:
+    """Phase 10's half-GPU actor: what its lease shows it."""
+
+    def view(self):
+        import os
+
+        return lease_view(), os.getpid()
 
 
 def gpu_probe():
@@ -2903,13 +2966,20 @@ def phase10(seed, cfg, mini_tree, m2, m3, timeout=600):
         print(f"  cluster resources {res}")
         check(res.get("GPU") == 1.0, f"cluster GPU resource {res.get('GPU')}")
 
-        # (b) a GPU task runs F1 in its own worker.
+        # (b) a GPU task runs F1 in its own worker, bound to the card.
         b, s, h, hkv, d = PHASE10_SHAPE
         t0 = time.perf_counter()
-        pid, o, lse, task_f1 = rt.get(
+        pid, o, lse, task_f1, view, n_cuda = rt.get(
             rt.remote(num_gpus=1)(flash_task).remote(seed), timeout=timeout)
         task_s = time.perf_counter() - t0
         check(pid != os.getpid(), "the GPU task ran in the driver")
+        cards = list(rt_api._runtime.node.gpu_free)
+        print(f"  the node's card {cards}; the GPU task's lease: "
+              f"CUDA_VISIBLE_DEVICES {view[0]!r}, CUDA_DEVICE_ORDER "
+              f"{view[1]!r}, {n_cuda} CUDA device(s)")
+        check(len(cards) == 1 and view == (cards[0], "PCI_BUS_ID")
+              and n_cuda == 1, "the GPU task's lease is not bound to the "
+              "node's one card")
         check(o.is_cuda and o.dtype == torch.bfloat16
               and o.shape == (b, s, h, d) and lse.shape == (b * h, 1, s),
               f"GPU task returned O {o.dtype} {tuple(o.shape)} on {o.device}")
@@ -3004,6 +3074,18 @@ def phase10(seed, cfg, mini_tree, m2, m3, timeout=600):
         print(f"  second GPU task: waited 2 s while the actor held the GPU, "
               f"ran (pid {probe_pid}) {time.perf_counter() - t0:.3f} s after "
               f"the kill")
+        # (f) two half-GPU actors share the one card.
+        t0 = time.perf_counter()
+        halves = [rt.remote(num_gpus=0.5)(LeaseView).remote()
+                  for _ in range(2)]
+        views = rt.get([h.view.remote() for h in halves], timeout=timeout)
+        print(f"  two num_gpus=0.5 actors: {views}, "
+              f"{time.perf_counter() - t0:.3f} s")
+        check(all(v == (cards[0], "PCI_BUS_ID") for v, _ in views)
+              and views[0][1] != views[1][1],
+              "two half-GPU actors do not share the node's one card")
+        for h in halves:
+            rt.kill(h)
     finally:
         rt.shutdown()
     return {"init_s": init_s, "task_s": task_s, "cold_s": cold_s,
@@ -6224,8 +6306,12 @@ def phase20(seed, m2, model="mini", device="cuda"):
         t_kill = time.perf_counter()
         for a in actors:
             rt.kill(a)
-        p20_wait(lambda: not provider.non_terminated_nodes(),
-                 P20_REAP_LIMIT_S, "the idle node was not terminated")
+        # The stamp, not the provider's list: the list drops the node
+        # before terminate_node has stopped it and stamped the time.
+        p20_wait(lambda: provider.terminated, P20_REAP_LIMIT_S,
+                 "the idle node was not terminated")
+        check(not provider.non_terminated_nodes(),
+              f"20: the provider lists {provider.non_terminated_nodes()}")
         reap_s = provider.terminated[0][1] - t_kill
         p20_wait(lambda: not rt.cluster_resources().get("GPU"), P20_GONE_S,
                  f"the head still counts GPU {rt.cluster_resources()}")

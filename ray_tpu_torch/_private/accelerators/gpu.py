@@ -36,28 +36,41 @@ class GPUAcceleratorManager(AcceleratorManager):
     def resource_name(self) -> str:
         return "GPU"
 
-    def detect_count(self) -> int:
+    def detect_ids(self) -> list[str]:
+        """The node's card ids, as a lease's ``CUDA_VISIBLE_DEVICES``
+        names them: the entries of this process's
+        ``CUDA_VISIBLE_DEVICES`` where it is set (as the strings listed
+        there, up to the first entry CUDA would stop at); else the
+        ``/dev/nvidiaN`` files this process may open, in minor order,
+        numbered from 0 as CUDA numbers the cards it can open under
+        ``CUDA_DEVICE_ORDER=PCI_BUS_ID`` (the driver gives minors in PCI
+        order; a container given /dev/nvidia3 alone sees it as device 0);
+        under ``FAKE_CHIPS=n``, ``0..n-1``."""
         from ray_tpu_torch._private import config
 
         fake = config.get("FAKE_CHIPS")
         if fake != "":  # "0" is a valid fake (simulate a GPU-less host)
-            return int(fake)
+            return [str(i) for i in range(int(fake))]
         visible = os.environ.get("CUDA_VISIBLE_DEVICES")
         if visible is not None:
             # "" means explicitly zero visible cards; CUDA stops at the
             # first invalid entry ("-1", "NoDevFiles").
-            n = 0
+            ids = []
             for dev in visible.split(","):
                 dev = dev.strip()
                 if not dev or dev.startswith("-") or dev == "NoDevFiles":
                     break
-                n += 1
-            return n
+                ids.append(dev)
+            return ids
         try:
-            return len([p for p in glob.glob("/dev/nvidia*")
-                        if _CARD_FILE.match(p) and _usable(p)])
+            paths = [p for p in glob.glob("/dev/nvidia*")
+                     if _CARD_FILE.match(p) and _usable(p)]
         except OSError:
-            return 0
+            return []
+        return [str(i) for i in range(len(paths))]
+
+    def detect_count(self) -> int:
+        return len(self.detect_ids())
 
     def detect_labels(self) -> dict[str, str]:
         # What the host exposes without a CUDA context: the driver's

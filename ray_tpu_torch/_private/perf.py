@@ -426,7 +426,7 @@ def collective_multiproc_bench(quick: bool = False) -> list[dict]:
 
     script = textwrap.dedent(
         """
-        import datetime, time, json
+        import asyncio, datetime, os, sys, time, json
         import torch
         import torch.distributed as dist
         from ray_tpu_torch.collective.backends.nccl_group import NcclDistGroup
@@ -448,6 +448,14 @@ def collective_multiproc_bench(quick: bool = False) -> list[dict]:
         dt = (time.perf_counter() - t0) / {trials}
         if {rank} == 0:
             print("DT=" + json.dumps(dt))
+        # Leave together, and without the interpreter's teardown: gloo's
+        # threads and rank 0's store server, torn down in the order of
+        # finalization, abort a busy host's process ("terminate called
+        # without an active exception") after the row is measured.
+        g.barrier()
+        asyncio.run(g.destroy())
+        sys.stdout.flush()
+        os._exit(0)
         """
     )
 

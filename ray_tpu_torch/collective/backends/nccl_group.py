@@ -915,7 +915,9 @@ class NcclDistGroup(_RecordStateMixin):
             dist_backend, dist.PrefixStore(f"pg:{name}", store), rank,
             world_size, self.timeout_s or _default_timeout(),
         )
-        # NCCL's ranks run on this process's current CUDA device.
+        # NCCL's ranks run on this process's current CUDA device: in a
+        # worker of a GPU lease, cuda:0 of its view, the leased card, in
+        # every thread (a thread's current device starts at 0).
         self._cuda = (torch.device("cuda", torch.cuda.current_device())
                       if dist_backend == "nccl" else None)
         self._sync_pool: Any = None  # lazy single-thread deadline pool

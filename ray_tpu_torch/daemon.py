@@ -5,7 +5,8 @@ binaries; here the head service and node manager are asyncio services
 hosted by this module's entry point). The node's resources come from the
 port's runtime/node.py ``detect_resources``: GPUs counted from
 CUDA_VISIBLE_DEVICES or the /dev/nvidiaN files this process may open,
-without creating a CUDA context.
+without creating a CUDA context; the node names its cards by the same
+ids (``node_gpu_ids``) and binds each GPU lease to its own.
 
 Layout of a session directory (one per host, default
 <tmp>/ray_tpu_torch_cluster: the port's own, so that `stop` of one

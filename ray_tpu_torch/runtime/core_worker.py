@@ -78,6 +78,17 @@ class _NeedsTensor(Exception):
         self.meta = meta
 
 
+def _cuda_driver_loaded(maps: str = "/proc/self/maps") -> bool:
+    """Whether this process mapped the CUDA driver library (libcuda),
+    which every CUDA initialization loads; True where the map cannot be
+    read."""
+    try:
+        with open(maps) as f:
+            return any("libcuda.so" in line for line in f)
+    except OSError:
+        return True
+
+
 class CoreWorker:
     def __init__(
         self,
@@ -2458,6 +2469,19 @@ class CoreWorker:
         # tpulint: allow(broad-except reason=not swallowed - the construction error is serialized into the reply and raises at the actor handle)
         except Exception as e:
             return {"status": "error", "error": _dumps_small(_as_task_error(e))}
+
+    async def _on_bind_cards(self, conn, cards: str):
+        """Take a GPU lease's cards (runtime/node.py) into this process's
+        environment, where no CUDA driver was loaded in it yet: CUDA reads
+        ``CUDA_VISIBLE_DEVICES`` when it initializes, so a process that
+        loaded the driver keeps the cards it saw then, and refuses."""
+        import os
+
+        if _cuda_driver_loaded():
+            return {"ok": False}
+        os.environ["CUDA_VISIBLE_DEVICES"] = cards
+        os.environ["CUDA_DEVICE_ORDER"] = "PCI_BUS_ID"
+        return {"ok": True}
 
     async def _on_exit_worker(self, conn):
         # Process workers die hard; inproc workers (WORKER_MODE=inproc,

@@ -8,7 +8,12 @@ requests, reaps dead workers, and owns the node's shared-memory object
 store directory. GPUs are first-class resources: the node counts them
 from the environment and devfs, without a CUDA context, and registers
 "GPU" alongside "CPU" (reference: python/ray/_private/accelerators/
-nvidia_gpu.py).
+nvidia_gpu.py). Each card keeps its own free share: a GPU lease is bound
+to its cards (whole cards for ``num_gpus >= 1``, one card's share for a
+fraction), and the worker that serves it starts with
+``CUDA_VISIBLE_DEVICES`` naming them, so ``cuda:0`` there is the leased
+card (reference: the raylet's per-instance GPU ids and
+``CUDA_VISIBLE_DEVICES`` per worker).
 """
 
 from __future__ import annotations
@@ -345,6 +350,76 @@ def _build_env_locked(runtime_env: dict, root: str, info: dict) -> None:
         info["cwd"] = stage
 
 
+# Card shares are kept to this many decimals, so that fractions such as
+# four leases of 0.25 add back to a whole card exactly.
+_SHARE_DIGITS = 6
+
+
+def node_gpu_ids(count: float) -> list[str]:
+    """The card ids of a node that advertises ``count`` GPUs: the cards
+    detected here (accelerators/gpu.py ``detect_ids``), the first
+    ``ceil(count)`` of them. A
+    node told of more GPUs than this host shows names the rest by the
+    numbers after the last detected one: a lease bound to such a card
+    sees no device, and never silently the first card."""
+    from ray_tpu_torch._private.accelerators.gpu import GPUAcceleratorManager
+
+    n = int(-(-float(count) // 1)) if count > 0 else 0
+    ids = GPUAcceleratorManager().detect_ids()[:n]
+    nxt = max((int(i) for i in ids if i.isdigit()), default=-1) + 1
+    while len(ids) < n:
+        ids.append(str(nxt))
+        nxt += 1
+    return ids
+
+
+def fit_cards(gpus: float, free: dict[str, float]) -> dict[str, float] | None:
+    """The cards a lease of ``gpus`` takes from ``free`` (card id -> free
+    share, in the node's card order): ``{}`` for no GPU; for a fraction
+    below one, that share of the first card with as much free (a
+    fraction never straddles two cards); for a whole ``k``, the first
+    ``k`` whole free cards. None where it cannot be bound now, and for
+    a non-whole count above one, which no card set can hold."""
+    gpus = round(float(gpus), _SHARE_DIGITS)
+    if gpus <= 0:
+        return {}
+    if gpus < 1:
+        for card, share in free.items():
+            if share >= gpus:
+                return {card: gpus}
+        return None
+    if gpus != int(gpus):
+        return None
+    whole = [card for card, share in free.items() if share >= 1]
+    if len(whole) < gpus:
+        return None
+    return {card: 1.0 for card in whole[:int(gpus)]}
+
+
+def _move_shares(pool: dict[str, float], cards: dict[str, float],
+                 sign: int) -> None:
+    for card, share in cards.items():
+        pool[card] = round(pool.get(card, 0.0) + sign * share, _SHARE_DIGITS)
+
+
+def _card_env(cards) -> dict[str, str]:
+    """A GPU lease's worker sees its cards only, so cuda:0 is the first of
+    them; the ids count the cards in PCI order (the devfs minors' order),
+    which CUDA's default order may not be."""
+    if not cards:
+        return {}
+    return {"CUDA_VISIBLE_DEVICES": ",".join(cards),
+            "CUDA_DEVICE_ORDER": "PCI_BUS_ID"}
+
+
+def pool_key(ehash: str, cards) -> str:
+    """Idle workers are pooled by runtime env and card set: a process
+    cannot change its ``CUDA_VISIBLE_DEVICES``, so a worker started for
+    one card set never serves a lease of another (CPU leases: the env
+    hash alone, as before)."""
+    return f"{ehash}|cuda:{','.join(cards)}" if cards else ehash
+
+
 def detect_resources() -> dict[str, float]:
     """Detect node resources WITHOUT initializing CUDA: a CUDA context
     here would hold memory on every card in the driver's or daemon's
@@ -361,7 +436,7 @@ def detect_resources() -> dict[str, float]:
 class Lease:
     __slots__ = (
         "lease_id", "worker", "resources", "actor", "bundle",
-        "bundle_resources", "granted_at",
+        "bundle_resources", "granted_at", "cards",
     )
 
     def __init__(self, lease_id: str, worker: dict, resources: dict, actor: bool):
@@ -372,6 +447,9 @@ class Lease:
         self.bundle: tuple | None = None  # (pg_id, index) if bundle-backed
         self.bundle_resources: dict | None = None
         self.granted_at = time.monotonic()
+        # card id -> share of the GPU this lease holds (from the node's
+        # cards, or from its bundle's)
+        self.cards: dict[str, float] = {}
 
 
 class NodeManager:
@@ -388,6 +466,9 @@ class NodeManager:
         self.store_dir = store_dir
         self.total = resources or detect_resources()
         self.available = dict(self.total)
+        # Per-card accounting: card id -> free share, in card order.
+        self.gpu_free: dict[str, float] = dict.fromkeys(
+            node_gpu_ids(self.total.get("GPU", 0)), 1.0)
         self.labels = detect_labels() if labels is None else dict(labels)
         self.worker_env = worker_env or {}
         self.server = rpc.Server(self._handle)
@@ -395,7 +476,8 @@ class NodeManager:
         self.head: rpc.Connection | None = None
         # worker_id → {proc, conn, addr, pid, state: spawning|idle|leased}
         self.workers: dict[str, dict] = {}
-        # env_hash → idle worker ids (workers are pooled per runtime_env)
+        # pool_key → idle worker ids (workers are pooled per runtime_env
+        # and card set)
         self.idle: dict[str, list[str]] = collections.defaultdict(list)
         self.leases: dict[str, Lease] = {}
         # (resources, actor, fut, enqueued_at, runtime_env): queued
@@ -406,7 +488,7 @@ class NodeManager:
         self._pending: list[tuple] = []
         # (pg_id, index) → {"total": resources, "available": resources}
         self.bundles: dict[tuple, dict] = {}
-        # env_hash → waiters for a worker of that env
+        # pool_key → waiters for a worker of that env and card set
         self._worker_waiters: dict[str, collections.deque] = (
             collections.defaultdict(collections.deque)
         )
@@ -531,7 +613,8 @@ class NodeManager:
 
     # ------------------------------------------------------------ workers
     def _spawn_worker(
-        self, runtime_env: dict | None = None, ehash: str | None = None
+        self, runtime_env: dict | None = None, ehash: str | None = None,
+        cards: tuple = (),
     ) -> str:
         worker_id = WorkerID.random().hex()
         if ehash is None:
@@ -542,7 +625,8 @@ class NodeManager:
             # Checked BEFORE the inproc branch: a cpp lease must never
             # silently get a Python CoreWorker (the binary is a real
             # subprocess even in scale-simulation mode).
-            return self._spawn_worker_cpp(worker_id, runtime_env, ehash)
+            return self._spawn_worker_cpp(worker_id, runtime_env, ehash,
+                                          cards)
         if config.get("WORKER_MODE") == "inproc":
             # Scale-simulation mode (see the WORKER_MODE knob and the
             # reference's many-node release benchmarks,
@@ -552,7 +636,8 @@ class NodeManager:
             # a process worker — the control plane cannot tell the
             # difference — but costs ~100 KB instead of an interpreter,
             # so thousands of actors fit one host.
-            return self._spawn_worker_inproc(worker_id, runtime_env, ehash)
+            return self._spawn_worker_inproc(worker_id, runtime_env, ehash,
+                                             cards)
         # Workers must find the ray_tpu_torch package regardless of their cwd.
         import ray_tpu_torch
 
@@ -620,6 +705,7 @@ class NodeManager:
             # worker prints sit in libc buffers and never reach the log
             # pipeline.
             "PYTHONUNBUFFERED": "1",
+            **_card_env(cards),
         }
         try:
             if in_container:
@@ -632,7 +718,7 @@ class NodeManager:
                 fwd = {
                     k: v
                     for k, v in env.items()
-                    if k.startswith(("RAY_TPU_", "PYTHON", "JAX_"))
+                    if k.startswith(("RAY_TPU_", "PYTHON", "JAX_", "CUDA_"))
                     or k in self.worker_env
                     or k in (renv.get("env_vars") or {})
                 }
@@ -672,13 +758,16 @@ class NodeManager:
             "proc": proc,
             "state": "spawning",
             "env_hash": ehash,
+            "pool": pool_key(ehash, cards),
+            "cards": tuple(cards),
             "runtime_env": runtime_env,
             "log_path": str(log_path),
         }
         return worker_id
 
     def _spawn_worker_cpp(
-        self, worker_id: str, runtime_env: dict | None, ehash: str
+        self, worker_id: str, runtime_env: dict | None, ehash: str,
+        cards: tuple,
     ) -> str:
         """Spawn the configured C++ worker binary (reference: the C++
         worker the raylet starts for RAY_REMOTE tasks, cpp/src/ray/
@@ -713,6 +802,7 @@ class NodeManager:
             "RAY_TPU_AUTH_TOKEN": config.get("AUTH_TOKEN"),
             "RAY_TPU_TLS_CERT": config.get("TLS_CERT"),
             "RAY_TPU_TLS_KEY": config.get("TLS_KEY"),
+            **_card_env(cards),
         }
         try:
             self.log_dir.mkdir(parents=True, exist_ok=True)
@@ -731,13 +821,16 @@ class NodeManager:
             "proc": proc,
             "state": "spawning",
             "env_hash": ehash,
+            "pool": pool_key(ehash, cards),
+            "cards": tuple(cards),
             "runtime_env": runtime_env,
             "log_path": str(log_path),
         }
         return worker_id
 
     def _spawn_worker_inproc(
-        self, worker_id: str, runtime_env: dict | None, ehash: str
+        self, worker_id: str, runtime_env: dict | None, ehash: str,
+        cards: tuple,
     ) -> str:
         # Pair with the unconditional release in the reap loop /
         # _kill_worker: without this, inproc workers decrement a
@@ -749,6 +842,8 @@ class NodeManager:
             "inproc": True,
             "state": "spawning",
             "env_hash": ehash,
+            "pool": pool_key(ehash, cards),
+            "cards": tuple(cards),
             "runtime_env": runtime_env,
             "log_path": "",
         }
@@ -806,10 +901,15 @@ class NodeManager:
 
     # ------------------------------------------------------------ leases
     def _feasible(self, resources: dict) -> bool:
-        return all(self.total.get(k, 0) >= v for k, v in resources.items())
+        return all(
+            self.total.get(k, 0) >= v for k, v in resources.items()
+        ) and fit_cards(resources.get("GPU", 0),
+                        dict.fromkeys(self.gpu_free, 1.0)) is not None
 
     def _available(self, resources: dict) -> bool:
-        return all(self.available.get(k, 0) >= v for k, v in resources.items())
+        return all(
+            self.available.get(k, 0) >= v for k, v in resources.items()
+        ) and fit_cards(resources.get("GPU", 0), self.gpu_free) is not None
 
     def _bump_resources(self):
         """Mark the resource view dirty: the sync loop pushes a
@@ -830,15 +930,22 @@ class NodeManager:
             self.available[k] = self.available.get(k, 0) + v
         self._bump_resources()
 
-    async def _get_worker(self, runtime_env: dict | None = None) -> str:
-        """Pop an idle worker of the matching runtime_env, else wait for
-        a spawning one; only spawn a fresh process when demand exceeds
-        the number already spawning (avoids a thundering herd of Python
-        interpreters on cold bursts)."""
+    async def _get_worker(
+        self, runtime_env: dict | None = None, cards: tuple = ()
+    ) -> str:
+        """Pop an idle worker of the matching runtime_env and card set,
+        else wait for a spawning one; only spawn a fresh process when
+        demand exceeds the number already spawning (avoids a thundering
+        herd of Python interpreters on cold bursts)."""
         ehash = env_hash(runtime_env)
-        bucket = self.idle[ehash]
+        key = pool_key(ehash, cards)
+        bucket = self.idle[key]
         if bucket:
             return bucket.pop()
+        if cards:
+            worker_id = await self._rebind_idle(ehash, cards)
+            if worker_id is not None:
+                return worker_id
         if runtime_env and (
             runtime_env.get("pip")
             or runtime_env.get("uv")
@@ -861,36 +968,100 @@ class NodeManager:
         n_spawning = sum(
             1
             for w in self.workers.values()
-            if w.get("state") == "spawning" and w.get("env_hash", "") == ehash
+            if w.get("state") == "spawning" and w.get("pool", "") == key
         )
-        if n_spawning <= len(self._worker_waiters[ehash]):
-            self._spawn_worker(runtime_env, ehash=ehash)
+        if n_spawning <= len(self._worker_waiters[key]):
+            self._spawn_worker(runtime_env, ehash=ehash, cards=cards)
         fut = asyncio.get_running_loop().create_future()
-        self._worker_waiters[ehash].append(fut)
+        self._worker_waiters[key].append(fut)
         return await asyncio.wait_for(fut, SPAWN_TIMEOUT_S)
 
+    async def _rebind_idle(self, ehash: str, cards: tuple) -> str | None:
+        """An idle worker of the env's CPU pool that never loaded the CUDA
+        driver takes the lease's cards into its environment (it reads
+        them at its first CUDA call) and moves to the cards' pool; one
+        that loaded it refuses, stays a CPU worker and is not asked
+        again. None where no such worker is idle."""
+        pool = self.idle[ehash]
+        for worker_id in list(pool):
+            w = self.workers.get(worker_id)
+            if (worker_id not in pool or w is None or w.get("inproc")
+                    or w.get("cuda_loaded") or not w.get("addr")):
+                continue
+            pool.remove(worker_id)
+            reply = {}
+            try:
+                conn = await rpc.connect(w["addr"], retries=1)
+                try:
+                    reply = await conn.call("bind_cards",
+                                            cards=",".join(cards))
+                finally:
+                    await conn.close()
+            except (rpc.RpcError, OSError):
+                pass
+            if self.workers.get(worker_id) is not w:
+                continue  # died while asked
+            if reply.get("ok"):
+                w.update(pool=pool_key(ehash, cards), cards=tuple(cards))
+                return worker_id
+            w["cuda_loaded"] = True
+            pool.append(worker_id)
+        return None
+
     async def _grant_lease(
-        self, resources: dict, actor: bool, runtime_env: dict | None = None
+        self, resources: dict, actor: bool, runtime_env: dict | None = None,
+        cards: dict | None = None,
     ) -> dict:
+        """Grant from the node's pool. ``cards``, where given, are the
+        card shares the caller took for this lease (from a bundle's, or
+        the node's when a queued lease is fulfilled) and gives back if
+        the grant fails; else the lease's GPU share is bound to free
+        cards of the node here."""
+        own = cards is None
+        if own:
+            cards = fit_cards(resources.get("GPU", 0), self.gpu_free)
+            if cards is None:
+                raise RuntimeError(
+                    f"no card can hold GPU {resources.get('GPU')} on node "
+                    f"{self.node_id[:8]}: free shares {self.gpu_free}"
+                )
+            _move_shares(self.gpu_free, cards, -1)
         self._acquire(resources)
         try:
-            worker_id = await self._get_worker(runtime_env)
+            worker_id = await self._get_worker(runtime_env, tuple(cards))
             w = self.workers[worker_id]
             w["state"] = "leased"
             self._next_lease += 1
             lease_id = f"{self.node_id[:8]}-{self._next_lease}"
-            self.leases[lease_id] = Lease(
+            lease = Lease(
                 lease_id, {**w, "worker_id": worker_id}, resources, actor
             )
+            lease.cards = dict(cards)
+            self.leases[lease_id] = lease
             return {
                 "ok": True,
                 "lease_id": lease_id,
                 "worker_id": worker_id,
                 "addr": w["addr"],
+                "gpu_ids": list(cards),
             }
         except Exception:
             self._release(resources)
+            if own:
+                _move_shares(self.gpu_free, cards, 1)
             raise
+
+    def _end_lease(self, lease: "Lease"):
+        """Give a finished lease's resources and card shares back, to its
+        bundle where it drew on one."""
+        if lease.bundle is None:
+            _move_shares(self.gpu_free, lease.cards, 1)
+        else:
+            b = self.bundles.get(lease.bundle)
+            if b is not None:
+                _move_shares(b["cards"], lease.cards, 1)
+        self._release(lease.resources)
+        self._credit_bundle(lease)
 
     async def _handle(self, method: str, kw: dict, conn: rpc.Connection):
         fn = getattr(self, f"_on_{method}", None)
@@ -1412,14 +1583,14 @@ class NodeManager:
         return {"ok": True, "node_id": self.node_id}
 
     def _offer_worker(self, worker_id: str):
-        ehash = self.workers.get(worker_id, {}).get("env_hash", "")
-        waiters = self._worker_waiters[ehash]
+        key = self.workers.get(worker_id, {}).get("pool", "")
+        waiters = self._worker_waiters[key]
         while waiters:
             fut = waiters.popleft()
             if not fut.done():
                 fut.set_result(worker_id)
                 return
-        self.idle[ehash].append(worker_id)
+        self.idle[key].append(worker_id)
 
     async def _on_lease_worker(
         self,
@@ -1450,21 +1621,27 @@ class NodeManager:
             b = self.bundles.get(tuple(bundle))
             if b is None:
                 return {"ok": False, "error": f"no bundle {bundle} here"}
-            if any(b["available"].get(k, 0) < v for k, v in resources.items()):
+            cards = fit_cards(resources.get("GPU", 0), b["cards"])
+            if cards is None or any(
+                b["available"].get(k, 0) < v for k, v in resources.items()
+            ):
                 return {
                     "ok": False,
                     "error": f"bundle {bundle} lacks {resources}",
                 }
             for k, v in resources.items():
                 b["available"][k] -= v
+            _move_shares(b["cards"], cards, -1)
             # The lease draws on the bundle, not the general pool — spawn
             # a worker without double-charging node resources. Credit the
             # bundle back if the grant itself fails (worker spawn error).
             try:
-                grant = await self._grant_lease({}, actor, runtime_env)
+                grant = await self._grant_lease({}, actor, runtime_env,
+                                                cards=cards)
             except Exception:
                 for k, v in resources.items():
                     b["available"][k] += v
+                _move_shares(b["cards"], cards, 1)
                 raise
             lease = self.leases[grant["lease_id"]]
             lease.bundle = tuple(bundle)
@@ -1499,20 +1676,19 @@ class NodeManager:
         lease = self.leases.pop(lease_id, None)
         if lease is None:
             return {"ok": False}
-        self._release(lease.resources)
-        self._credit_bundle(lease)
+        self._end_lease(lease)
         worker_id = lease.worker["worker_id"]
         w = self.workers.get(worker_id)
         if w and w.get("state") == "leased":
             w["state"] = "idle"
-            ehash = w.get("env_hash", "")
-            if self._worker_waiters[ehash]:
+            key = w.get("pool", "")
+            if self._worker_waiters[key]:
                 # Hand the warm worker straight to a blocked lease grant
                 # rather than parking (or killing) it while the grant
                 # waits out an interpreter spawn.
                 self._offer_worker(worker_id)
             else:
-                self.idle[ehash].append(worker_id)
+                self.idle[key].append(worker_id)
                 self._enforce_idle_cap()
         self._drain_pending()
         return {"ok": True}
@@ -1538,10 +1714,16 @@ class NodeManager:
                 "ok": False,
                 "error": f"bundle {resources} unavailable on {self.node_id[:8]}",
             }
+        # A GPU bundle holds its cards from the reservation on; the
+        # leases inside it take theirs from these.
+        cards = fit_cards(resources.get("GPU", 0), self.gpu_free)
+        _move_shares(self.gpu_free, cards, -1)
         self._acquire(resources)
         self.bundles[(pg_id, index)] = {
             "total": resources,
             "available": dict(resources),
+            "card_total": dict(cards),
+            "cards": dict(cards),
         }
         return {"ok": True}
 
@@ -1549,6 +1731,7 @@ class NodeManager:
         b = self.bundles.pop((pg_id, index), None)
         if b is None:
             return {"ok": False}
+        _move_shares(self.gpu_free, b["card_total"], 1)
         self._release(b["total"])
         self._drain_pending()
         return {"ok": True}
@@ -1578,8 +1761,7 @@ class NodeManager:
         for lease_id, lease in list(self.leases.items()):
             if lease.worker["worker_id"] == worker_id:
                 self.leases.pop(lease_id)
-                self._release(lease.resources)
-                self._credit_bundle(lease)
+                self._end_lease(lease)
         self._drain_pending()
 
     async def _on_list_workers(self, conn):
@@ -1631,8 +1813,9 @@ class NodeManager:
         if not w:
             return
         ehash = w.get("env_hash", "")
-        if worker_id in self.idle[ehash]:
-            self.idle[ehash].remove(worker_id)
+        idle = self.idle[w.get("pool", "")]
+        if worker_id in idle:
+            idle.remove(worker_id)
         proc = w.get("proc")
         if proc and proc.poll() is None:
             proc.kill()
@@ -1648,8 +1831,12 @@ class NodeManager:
             if fut.done():
                 continue
             if self._available(resources):
+                # Bind the cards now: the grants started here run later,
+                # and each must find its cards still free.
+                cards = fit_cards(resources.get("GPU", 0), self.gpu_free)
+                _move_shares(self.gpu_free, cards, -1)
                 asyncio.ensure_future(
-                    self._fulfil(resources, actor, fut, runtime_env)
+                    self._fulfil(resources, actor, fut, runtime_env, cards)
                 )
             elif now - ts > PENDING_SPILL_S:
                 fut.set_result(
@@ -1662,13 +1849,17 @@ class NodeManager:
             self._bump_resources()
         self._pending = still
 
-    async def _fulfil(self, resources, actor, fut, runtime_env=None):
+    async def _fulfil(self, resources, actor, fut, runtime_env=None,
+                      cards=None):
         try:
-            result = await self._grant_lease(resources, actor, runtime_env)
+            result = await self._grant_lease(resources, actor, runtime_env,
+                                             cards=cards)
             if not fut.done():
                 fut.set_result(result)
         # tpulint: allow(broad-except reason=failure propagates to the waiter via fut.set_exception, not swallowed)
         except Exception as e:
+            if cards:
+                _move_shares(self.gpu_free, cards, 1)
             if not fut.done():
                 fut.set_exception(e)
 
@@ -2006,13 +2197,14 @@ class NodeManager:
             for wid in dead:
                 w = self.workers.pop(wid, None)
                 ehash = (w or {}).get("env_hash", "")
-                if wid in self.idle[ehash]:
-                    self.idle[ehash].remove(wid)
+                key = (w or {}).get("pool", "")
+                if wid in self.idle[key]:
+                    self.idle[key].remove(wid)
                 _env_cache.release(ehash)
                 if (
                     w
                     and w.get("state") == "spawning"
-                    and self._worker_waiters[ehash]
+                    and self._worker_waiters[key]
                 ):
                     # A worker died mid-spawn with grants still blocked on
                     # registration — spawn a replacement (same runtime_env)
@@ -2020,12 +2212,12 @@ class NodeManager:
                     # Reuse the dead worker's ehash: recomputing could
                     # hash an edited working_dir differently and strand
                     # the waiters in the old bucket.
-                    self._spawn_worker(w.get("runtime_env"), ehash=ehash)
+                    self._spawn_worker(w.get("runtime_env"), ehash=ehash,
+                                       cards=w.get("cards", ()))
                 for lease_id, lease in list(self.leases.items()):
                     if lease.worker["worker_id"] == wid:
                         self.leases.pop(lease_id)
-                        self._release(lease.resources)
-                        self._credit_bundle(lease)
+                        self._end_lease(lease)
                 if self.head:
                     try:
                         await self.head.call(

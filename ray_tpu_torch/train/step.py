@@ -20,8 +20,10 @@ the parameters and both AdamW moments are DTensors placed by
 ``kv_heads``, ``mlp`` and ``vocab``, ep on ``expert``), the batch is cut
 on ``batch``, each rank computes on its shards (weights sharded over fsdp
 gathered at use: ZeRO-3), each gradient arrives reduced over the data
-axes with its parameter's placements, :func:`global_norm` is the norm of
-the whole tensors, and AdamW updates the local shards. On a mesh with
+axes with its parameter's placements (a leaf replicated over ep or pp is
+made one value over them, :func:`agree_over_replicas`),
+:func:`global_norm` is the norm of the whole tensors, and AdamW updates
+the local shards. On a mesh with
 pp > 1 every pp rank runs the same step: the Llama leaves carry
 "layers", not "stage", so they and the batch are replicated over pp, as
 under the reference's partitioner (a pipelined step goes through
@@ -57,7 +59,7 @@ from ray_tpu_torch.models.moe import (
 )
 from ray_tpu_torch.ops.flash_attention import make_flash_attention
 from ray_tpu_torch.parallel import collectives as col
-from ray_tpu_torch.parallel.mesh import MESH_AXES
+from ray_tpu_torch.parallel.mesh import MESH_AXES, axis_size
 from ray_tpu_torch.parallel.ring_attention import make_ring_attention
 from ray_tpu_torch.parallel.sharding import (
     DATA_AXES,
@@ -116,6 +118,41 @@ def global_norm(tree: Params) -> torch.Tensor:
         total = sum(col.reduce_from(sq, mesh, axes)
                     for axes, sq in by_axes.items())
     return torch.sqrt(total)
+
+
+# Axes over which every rank runs the same work on the same batch: pp in
+# the plain step, and ep for everything outside the experts.
+REPLICA_AXES = ("pp", "ep")
+
+
+def agree_over_replicas(grads: list, mesh) -> list:
+    """``grads`` (DTensor leaves) with every leaf replicated over an axis
+    of :data:`REPLICA_AXES` set to the value of that axis's first rank.
+    Each such rank holds the whole gradient of the leaf, equal to the
+    others' up to the order of its sums (F2 adds dq with atomics); left
+    alone, the replicas would drift apart step by step where the
+    reference computes them once. Leaves sharded over the axis (the
+    experts, the router's columns) are each rank's own."""
+    out = list(grads)
+    for a in REPLICA_AXES:
+        if axis_size(mesh, a) == 1:
+            continue
+        group = mesh.get_group(a)
+        picked = [i for i, g in enumerate(out) if isinstance(g, DTensor)
+                  and not isinstance(g.placements[MESH_AXES.index(a)], Shard)]
+        for dtype in {out[i].dtype for i in picked}:
+            idx = [i for i in picked if out[i].dtype == dtype]
+            flat = torch.cat([local(out[i]).reshape(-1) for i in idx])
+            torch.distributed.broadcast(
+                flat, src=torch.distributed.get_global_rank(group, 0),
+                group=group)
+            parts = flat.split([local(out[i]).numel() for i in idx])
+            for i, part in zip(idx, parts):
+                g = out[i]
+                out[i] = DTensor.from_local(part.view_as(local(g)),
+                                            g.device_mesh, g.placements,
+                                            run_check=False)
+    return out
 
 
 def _zeros_like(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -493,6 +530,9 @@ def grad_step(cfg: LlamaConfig, attn_fn=None):
         loss, metrics = loss_fn(_unflatten(zip(paths, leaves)), batch, cfg,
                                 attn_fn)
         grads = torch.autograd.grad(loss, leaves)
+        mesh = active_mesh()
+        if mesh is not None:
+            grads = agree_over_replicas(grads, mesh)
         return ({k: v.detach() for k, v in metrics.items()},
                 _unflatten(zip(paths, grads)))
 

@@ -9,11 +9,13 @@ process-group bootstrap, python/ray/train/torch/config.py). Here:
 
 - The worker group reserves one placement-group bundle per worker; a
   GPU worker's bundle holds ``gpus_per_worker`` of the runtime's "GPU"
-  resource (fractions share a card).
+  resource, bound to cards of its own (fractions share a card), and the
+  worker sees those cards only (``CUDA_VISIBLE_DEVICES``).
 - With ``distributed=True`` each worker joins a NCCL collective group
   and a default ``torch.distributed`` process group, both rendezvoused
   through the head's KV store (``dist_backend``: "nccl", or "gloo"
   when asked for), so ``parallel/mesh.py::make_mesh`` spans the group.
+  On NCCL a worker runs on ``cuda:0`` of its own view, its leased card.
 - Failure policy: a slice is atomic — any worker death fails the whole
   attempt; the controller re-creates the group and restores from the
   latest checkpoint (reference: failure_policy.py RETRY semantics).
@@ -250,6 +252,32 @@ def _init_default_process_group(name: str, world: int, rank: int,
                             world_size=world)
 
 
+def _bind_leased_cards(gpus_per_worker: float) -> None:
+    """A NCCL rank runs on ``cuda:0`` of its own view. The node started
+    this worker with ``CUDA_VISIBLE_DEVICES`` naming its lease's cards
+    (runtime/node.py), so its first card is the leased one: check that
+    the view holds exactly the cards the lease named, and make cuda:0
+    this thread's device (a thread's current device is its own)."""
+    import torch
+
+    cards = [c for c in os.environ.get("CUDA_VISIBLE_DEVICES", "").split(",")
+             if c.strip()]
+    if gpus_per_worker < 1 or len(cards) != int(gpus_per_worker):
+        raise RuntimeError(
+            f"a NCCL train worker needs whole cards of its own: "
+            f"gpus_per_worker {gpus_per_worker}, CUDA_VISIBLE_DEVICES "
+            f"{os.environ.get('CUDA_VISIBLE_DEVICES')!r} (ScalingConfig("
+            f"use_gpu=True, gpus_per_worker=1), or dist_backend='gloo' for "
+            f"ranks that share a card)"
+        )
+    if torch.cuda.device_count() != len(cards):
+        raise RuntimeError(
+            f"CUDA shows {torch.cuda.device_count()} devices to a worker "
+            f"leased cards {cards}"
+        )
+    torch.cuda.set_device(0)
+
+
 @ray_tpu_torch.remote
 class TrainWorker:
     """One member of the worker group (reference: worker_group.py actors)."""
@@ -301,6 +329,9 @@ class TrainWorker:
 
             dist_backend = backend_env.get("RAY_TPU_TRAIN_DIST_BACKEND",
                                            "nccl")
+            if dist_backend == "nccl":
+                _bind_leased_cards(float(backend_env.get(
+                    "RAY_TPU_TRAIN_GPUS_PER_WORKER", "0")))
             collective_group = f"train:{experiment_name}:a{attempt}"
             if not col.is_group_initialized(collective_group):
                 col.init_collective_group(
@@ -811,6 +842,9 @@ class TorchTrainer:
         if self.scaling.distributed and n > 1:
             env["RAY_TPU_TRAIN_DISTRIBUTED"] = "1"
             env["RAY_TPU_TRAIN_DIST_BACKEND"] = self.scaling.dist_backend
+            if self.scaling.use_gpu:
+                env["RAY_TPU_TRAIN_GPUS_PER_WORKER"] = str(
+                    self.scaling.gpus_per_worker)
         return env
 
     def _run_attempt(

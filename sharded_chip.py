@@ -7,6 +7,7 @@ NVIDIA GPU.
     python3 sharded_chip.py train-faults   # phase 8b's limits: sound and planted readings
     python3 sharded_chip.py nccl           # whether NCCL takes two ranks on one card
     python3 sharded_chip.py nccl-ranks     # the NCCL routes (needs 2+ cards)
+    python3 sharded_chip.py nccl-train     # the sharded paths on NCCL (needs 4 cards)
 
 ``gloo`` runs each collective in a fresh pair of processes (rank 0 and
 rank 1 on cuda:0, a gloo process group over a ``file://`` rendezvous), so
@@ -30,6 +31,29 @@ through GradBucketer and timed), then one process per card in a
 NcclDistGroup on NCCL (every verb against numpy, partial mode with a late
 rank, int8, async, a CUDA send/recv), and times a 256 MiB allreduce on
 NCCL (bus bandwidth, nccl-tests' convention). Exits non-zero on any
+failed check.
+
+``nccl-train`` needs four cards and raises with fewer. It runs, each time
+against the same work in one process on one card: the bench preset at
+full width and depth (flash, remat "flash_qkv", B=16 S=2048) under
+{"fsdp": 4}, {"tp": 4} (2/1 heads per rank), {"fsdp": 2, "tp": 2}, {"sp": 4}
+with ring and with Ulysses attention, five steps each (the first two held
+to one process at phase 8b's limits, the last three timed), and the GPipe
+schedule over {"pp": 4} (6 layers per stage, phase 9a's program);
+moe_bench under {"ep": 4} (phase 9's limits); llama3_8b served under
+{"tp": 4} (phase 2's prompts, 64-token pages, 32 greedy tokens: the four
+ranks' streams equal, each token held to the plain path by stream_check,
+P1 once per layer per decode step); one NCCL rank per card
+(chip_smoke.run_ranks), every group's backend checked. Before them, F1/F2
+and P1 at the tp = 4 ranks' head layouts against their plain versions and
+timed (phase 8a's checks). Last, llama3_8b at all 32 layers and the whole
+vocabulary trained under {"fsdp": 4} through TorchTrainer on the port's
+runtime: 4 workers of one leased card each on NCCL, remat "full", S=4096,
+the largest per-rank batch of 4, 2, 1 the planner admits, 5 steps on one
+repeated batch (distinct cards, equal losses and norms on every rank, the
+first loss near ln(vocabulary), a falling loss, F1/F2 per layer, a quarter
+of the parameters resident per rank, the peak beside the planner's). It
+prints per-GPU tokens/s beside the one process's and exits non-zero on any
 failed check.
 
 ``kernel-faults`` runs phase 8a's checks of F1, F2 and P1 at a tp rank's
@@ -65,13 +89,19 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import dataclasses
+import gc
 import importlib
+import json
+import math
 import os
 import subprocess
 import sys
 import tempfile
+import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
@@ -370,6 +400,596 @@ def nccl_ranks() -> int:
     return 1 if bad else 0
 
 
+# ------------------------------------------------------------ nccl-train
+NT_WORLD = 4
+# Steps of each mesh run: the first NT_CHECKED held to one process, the
+# rest timed after them (two warm-up steps).
+NT_STEPS, NT_CHECKED = 5, 2
+# bench at full width and depth under each mesh: (axis sizes, attention).
+# "flash": F1/F2 per shard; "ring": the plain block attention of
+# parallel/ring_attention.py (no flash launch: its combine differentiates
+# through each block's row max and sum); "ulysses": F1/F2 on the
+# all-to-all's whole sequences at 2/1 heads.
+NT_MESHES = {
+    "fsdp=4": ({"fsdp": 4}, "flash"),
+    "tp=4": ({"tp": 4}, "flash"),
+    "fsdp=2,tp=2": ({"fsdp": 2, "tp": 2}, "flash"),
+    "sp=4 ring": ({"sp": 4}, "ring"),
+    "sp=4 ulysses": ({"sp": 4}, "ulysses"),
+}
+# The kernels at the tp = 4 ranks' head layouts (phase 8a's checks and
+# timing): F1/F2 at bench's 8/4 heads over 4 ranks, P1 at llama3_8b's.
+TP4_FLASH = (("bench tp=4", (2, 1, 128), (16, 2048), "_tp4"),)
+TP4_PAGED = (("llama3_8b tp=4", (8, 2, 128), "_tp4"),)
+# llama3_8b trained through TorchTrainer under {"fsdp": 4}: every layer,
+# the whole vocabulary, S = 4096, the largest per-rank batch of these the
+# planner admits.
+FIT_SEQ, FIT_BATCHES = 4096, (4, 2, 1)
+FIT_STEPS, FIT_WARM = 5, 2
+# The first loss on random weights: ln(vocabulary) plus half the logits'
+# variance. The final norm's output has unit rms and lm_head is drawn from
+# a normal truncated to [-2, 2] times fan_in**-0.5, so a logit's variance
+# is that truncated normal's, 1 - 4 phi(2) / (Phi(2) - Phi(-2)) = 0.774
+# (moe_bench's first loss in phase 5, 10.788 = ln 32768 + 0.387).
+FIT_LOGIT_VAR = 1 - 4 * (math.exp(-2) / math.sqrt(2 * math.pi)) / math.erf(
+    2 / math.sqrt(2))
+FIT_LOSS0_TOL = 0.1
+
+
+def _nt_bench(impl):
+    from ray_tpu_torch.models.llama import PRESETS
+
+    return dataclasses.replace(PRESETS["bench"], attn_impl=impl)
+
+
+def _nt_moe():
+    """moe_bench with flash attention (phase 5's model)."""
+    from ray_tpu_torch.models.moe import MOE_PRESETS
+
+    return dataclasses.replace(MOE_PRESETS["moe_bench"], attn_impl="flash")
+
+
+def _busy_ms(spans):
+    """The union of (start, end) intervals in microseconds, in ms."""
+    total, end = 0.0, -math.inf
+    for a, b in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
+
+
+def _device_profile(fn, calls):
+    """``fn`` called ``calls`` times under torch.profiler after a sync,
+    per call: the wall ms, the ms this rank's card was busy (the union of
+    its kernels' and copies' intervals), of them NCCL's kernels, and the
+    idle share of the wall. A reading, not a check: where the profiler
+    itself fails, the calls run without it and the error is kept."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    in_calls = False
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            in_calls = True
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / calls
+            in_calls = False
+        events = prof.events()
+    except RuntimeError as e:
+        if in_calls:  # the calls' own fault, not the profiler's
+            raise
+        return dict(error=f"{type(e).__name__}: {str(e)[:200]}")
+    spans = [(e.time_range.start, e.time_range.end, "nccl" in e.name.lower())
+             for e in events if e.device_type == DeviceType.CUDA]
+    busy = _busy_ms([s[:2] for s in spans]) / calls
+    nccl = _busy_ms([s[:2] for s in spans if s[2]]) / calls
+    return dict(wall_ms=wall, busy_ms=busy, nccl_ms=nccl,
+                idle=1 - busy / wall if wall else None)
+
+
+def _profile_step(state, step, data):
+    """One more train step under the profiler (rank 0 reads it)."""
+    box = [state]
+
+    def one():
+        box[0], _ = step(box[0], data)
+
+    return _device_profile(one, 1)
+
+
+def _nt_run(seed, sizes, cfg):
+    """One rank's NT_STEPS steps of ``cfg`` under ``sizes``, with the
+    backend of every axis of its mesh, and one more step profiled."""
+    from ray_tpu_torch.parallel.mesh import make_mesh
+
+    seen = {}
+
+    def build():
+        mesh = make_mesh(sizes)
+        seen.update(cs.mesh_backends(mesh))
+        return mesh
+
+    out = cs.rank_train(seed, build, cfg=cfg, steps=NT_STEPS,
+                        inspect=_profile_step)
+    out["backends"] = seen
+    return out
+
+
+def _profile_decode(eng, prompts):
+    """Four pure decode steps of the batch under the profiler, after its
+    prefill."""
+    from ray_tpu_torch.llm.engine import SamplingParams
+
+    for p in prompts:
+        eng.add_request(p, SamplingParams(max_tokens=8))
+    eng.step()
+    out = _device_profile(eng.step, 4)
+    while eng.has_unfinished():
+        eng.step()
+    return out
+
+
+def _nccl_train_rank(seed):
+    """One NCCL rank of nccl-train: bench under each of NT_MESHES, the
+    pipeline over pp = 4, moe_bench under ep = 4, llama3_8b served under
+    tp = 4."""
+    out = {"default": dist.get_backend(),
+           "device": torch.cuda.current_device()}
+    for name, (sizes, impl) in NT_MESHES.items():
+        out[name] = _nt_run(seed, sizes, _nt_bench(impl))
+    out["pp=4"] = cs.rank_pipeline(seed, stages=NT_WORLD,
+                                   repeats=NT_STEPS - NT_CHECKED + 1)
+    out["moe ep=4"] = _nt_run(seed, {"ep": NT_WORLD}, _nt_moe())
+    out["serve tp=4"] = cs.rank_serve(seed, NT_WORLD,
+                                      inspect=_profile_decode)
+    return out
+
+
+def _per_gpu(tokens, walls):
+    """Per-GPU tokens/s of a mesh run: the global batch's tokens over the
+    mean wall of the timed steps (after NT_CHECKED), over the ranks."""
+    timed = walls[NT_CHECKED:]
+    return tokens / (sum(timed) / len(timed)) / NT_WORLD
+
+
+def _fit_loop(config):
+    """TorchTrainer's loop on each of the 4 workers: llama3_8b under
+    {"fsdp": 4} on the worker's leased card, FIT_STEPS steps on one
+    repeated batch; every rank's losses and gradient norms gathered over
+    the trainer's NCCL collective group; this rank's readings written to
+    ``config["out"]/<rank>.json``."""
+    import ray_tpu_torch.collective as col
+    import ray_tpu_torch.train as train
+    from ray_tpu_torch.ops.flash_attention import (
+        flash_attention_backward,
+        flash_attention_forward,
+    )
+    from ray_tpu_torch.parallel.mesh import make_mesh
+    from ray_tpu_torch.parallel.sharding import local
+    from ray_tpu_torch.train import step as tstep
+
+    loop_start = time.time()
+    ctx = train.get_context()
+    cfg = _fit_config()
+    mesh = make_mesh({"fsdp": ctx.world_size})
+    backends = {"default": dist.get_backend(),
+                **{a: dist.get_backend(mesh.get_group(a))
+                   for a, n in zip(mesh.mesh_dim_names, mesh.shape) if n > 1}}
+    opt = tstep.make_optimizer(warmup=0, total_steps=1000,
+                               mu_dtype=torch.bfloat16)
+    state = tstep.init_train_state(cfg, opt, seed=config["seed"],
+                                   device="cuda", mesh=mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    init_s = time.time() - loop_start
+    resident = sum(local(v).numel() * local(v).element_size()
+                   for _, v in tstep._flatten(state.params))
+    step = tstep.jit_train_step(cfg, opt, mesh)
+    rng = np.random.default_rng(config["seed"])
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size,
+        (config["batch"] * ctx.world_size, FIT_SEQ + 1))).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, walls, f1, f2 = [], [], [], [], []
+    for _ in range(FIT_STEPS):
+        flash_attention_forward.launches = 0
+        flash_attention_backward.launches = 0
+        t0 = time.perf_counter()
+        state, metrics = step(state, {"tokens": tokens})
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        f1.append(flash_attention_forward.launches)
+        f2.append(flash_attention_backward.launches)
+    peak = torch.cuda.max_memory_allocated()
+    group = train.collective_group_name()
+    every = col.allgather(torch.tensor(losses + norms, device="cuda",
+                                       dtype=torch.float64),
+                          group_name=group)
+    rec = dict(rank=ctx.rank, cards=os.environ.get("CUDA_VISIBLE_DEVICES"),
+               device_count=torch.cuda.device_count(), backends=backends,
+               route=col.get_group(group).last_route,
+               every=every.reshape(ctx.world_size, -1).tolist(),
+               losses=losses, norms=norms, walls=walls, f1=f1, f2=f2,
+               peak=peak, resident=resident, whole=cfg.num_params() * 4,
+               init_s=init_s, loop_start=loop_start,
+               ln_vocab=math.log(cfg.vocab_size))
+    with open(os.path.join(config["out"], f"{ctx.rank}.json"), "w") as f:
+        json.dump(rec, f)
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    train.report({"loss": losses[-1]})
+
+
+def _fit_batch():
+    """The largest of FIT_BATCHES the planner admits per rank, and its
+    plan."""
+    from ray_tpu_torch.train import memory
+
+    cfg = dataclasses.replace(_fit_config(), remat="full")
+    for b in FIT_BATCHES:
+        p = memory.plan(cfg, b, FIT_SEQ, mu_dtype="bfloat16", hbm_gb=80.0,
+                        fsdp=NT_WORLD)
+        if p.fits:
+            return b, p
+    raise cs.SmokeFailure("the planner admits no batch of llama3_8b at "
+                          f"fsdp={NT_WORLD}")
+
+
+def _fit_config():
+    from ray_tpu_torch.models.llama import PRESETS
+
+    return dataclasses.replace(PRESETS["llama3_8b"], attn_impl="flash",
+                               remat="full")
+
+
+def nccl_fit(seed, bad):
+    """llama3_8b at full depth under fsdp = 4 through TorchTrainer on the
+    port's own runtime: 4 workers of one leased card each, NCCL."""
+    import json
+    import shutil
+
+    import ray_tpu_torch
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+
+    cfg = _fit_config()
+    batch, plan = _fit_batch()
+    print(f"llama3_8b fsdp={NT_WORLD} through TorchTrainer: "
+          f"{cfg.num_params() / 1e9:.2f} B parameters, {cfg.n_layers} layers, "
+          f"vocabulary {cfg.vocab_size}, S={FIT_SEQ}, per-rank batch {batch} "
+          f"(planned {plan.total_gb:.2f} GiB)", flush=True)
+    out = tempfile.mkdtemp(prefix="nccl_fit_")
+    ray_tpu_torch.init(num_cpus=8)
+    try:
+        gpus = ray_tpu_torch.cluster_resources().get("GPU")
+        t0 = time.time()
+        result = TorchTrainer(
+            _fit_loop, train_loop_config={"seed": seed, "batch": batch,
+                                          "out": out},
+            scaling_config=ScalingConfig(
+                num_workers=NT_WORLD, use_gpu=True, gpus_per_worker=1,
+                distributed=True, dist_backend="nccl"),
+            run_config=RunConfig(name="nccl_fit", storage_path=out),
+        ).fit()
+        fit_s = time.time() - t0
+        if result.error is not None:
+            bad.append(f"fit: {result.error!r}")
+            print(f"fit FAILED: {result.error!r}", flush=True)
+            return
+        recs = []
+        for r in range(NT_WORLD):
+            with open(os.path.join(out, f"{r}.json")) as f:
+                recs.append(json.load(f))
+    finally:
+        ray_tpu_torch.shutdown()
+        shutil.rmtree(out, ignore_errors=True)
+
+    def need(ok, text):
+        print(f"  {'ok' if ok else 'FAILED'}: {text}", flush=True)
+        if not ok:
+            bad.append(f"fit: {text}")
+
+    r0 = recs[0]
+    cards = [r["cards"] for r in recs]
+    need(len(set(cards)) == NT_WORLD and all(r["device_count"] == 1
+                                             for r in recs),
+         f"the node had {gpus} GPUs; each worker sees one card of its own: "
+         f"CUDA_VISIBLE_DEVICES {cards}")
+    need(all(set(r["backends"].values()) == {"nccl"} for r in recs)
+         and all(r["route"] == "nccl" for r in recs),
+         f"every group on NCCL: {r0['backends']}, the collective group's "
+         f"route {[r['route'] for r in recs]}")
+    same = all(r["every"] == r0["every"] for r in recs) and all(
+        row == r0["losses"] + r0["norms"] for row in r0["every"])
+    need(same, f"every rank reports the same losses {r0['losses']} and "
+         f"gradient norms {r0['norms']}")
+    want0 = r0["ln_vocab"] + FIT_LOGIT_VAR / 2
+    need(abs(r0["losses"][0] - want0) <= FIT_LOSS0_TOL,
+         f"first loss {r0['losses'][0]:.4f} within {FIT_LOSS0_TOL} of "
+         f"ln({cfg.vocab_size}) + {FIT_LOGIT_VAR:.4f} / 2 = {want0:.4f}")
+    need(all(b < a for a, b in zip(r0["losses"], r0["losses"][1:])),
+         f"the loss falls on the repeated batch: {r0['losses']}")
+    # remat "full" replays each layer's forward, F1 included, in the
+    # backward pass.
+    need(all(r["f1"] == [2 * cfg.n_layers] * FIT_STEPS
+             and r["f2"] == [cfg.n_layers] * FIT_STEPS for r in recs),
+         f"F1 {2 * cfg.n_layers} (forward and its replay) and F2 "
+         f"{cfg.n_layers} launches per step on every rank: "
+         f"{[(r['f1'][0], r['f2'][0]) for r in recs]}")
+    need(all(r["resident"] * NT_WORLD == r["whole"] for r in recs),
+         f"each rank holds a quarter of the {r0['whole'] / 2**30:.2f} GiB "
+         f"fp32 parameters: {[r['resident'] / 2**30 for r in recs]} GiB")
+    walls = r0["walls"][FIT_WARM:]
+    step_s = sum(walls) / len(walls)
+    tps = batch * FIT_SEQ / step_s
+    share = tps * cfg.flops_per_token(FIT_SEQ) / cs.BF16_FLOPS
+    loop_wait = min(r["loop_start"] for r in recs) - t0
+    print(f"  llama3_8b fsdp={NT_WORLD}: steps {[round(w, 3) for w in r0['walls']]}"
+          f" s; per-GPU {tps:.1f} tokens/s over steps {FIT_WARM}-"
+          f"{FIT_STEPS - 1}, {share:.3f} of the dense bf16 peak "
+          f"({cfg.flops_per_token(FIT_SEQ) / 1e9:.2f} GFLOP per token); "
+          f"fit {fit_s:.1f} s, {loop_wait:.1f} s of it before the loop, "
+          f"init {r0['init_s']:.1f} s in the loop", flush=True)
+    for r in recs:
+        err = plan.total_bytes / r["peak"] - 1
+        print(f"  rank {r['rank']} (card {r['cards']}): peak "
+              f"{r['peak'] / 2**30:.2f} GiB, planner {plan.total_gb:.2f} GiB,"
+              f" error {err:+.3f}", flush=True)
+
+
+def _fmt_profile(p):
+    if "error" in p:
+        return f"not taken ({p['error']})"
+    return (f"wall {p['wall_ms']:.1f} ms, card busy {p['busy_ms']:.1f} ms "
+            f"(NCCL {p['nccl_ms']:.1f}), idle {p['idle']:.3f}")
+
+
+def _check_mesh_run(name, ranks, single, bad, tokens, flops, launches):
+    """A bench or moe_bench mesh run's checks and readings against the
+    one-process run ``single``; ``launches``: each rank's (F1, F2).
+    Every rank must report the same losses and gradient norms, under ep
+    too (the train step makes the replicated leaves' gradients one value
+    over ep)."""
+    moe = name.startswith("moe")
+    loss_lim = cs.MOE_LOSS_REL if moe else cs.TWO_RANK_LOSS_REL
+    norm_lim = cs.MOE_NORM_REL if moe else cs.TWO_RANK_NORM_REL
+    r0 = ranks[0]
+    fails = []
+    if any(r["losses"] != r0["losses"] or r["norms"] != r0["norms"]
+           for r in ranks):
+        fails.append("the ranks report different losses or norms: "
+                     f"{[(r['losses'], r['norms']) for r in ranks]}")
+
+    def rel(key, r):
+        return [cs._rel(a, b) for a, b in zip(r[key][:NT_CHECKED],
+                                              single[key])]
+
+    loss = [max(x) for x in zip(*(rel("losses", r) for r in ranks))]
+    norm = [max(x) for x in zip(*(rel("norms", r) for r in ranks))]
+    aux = [max(x) for x in zip(*(rel("aux", r) for r in ranks))]
+    if max(loss) > loss_lim or max(norm) > norm_lim or max(
+            aux, default=0.0) > cs.MOE_AUX_REL:
+        fails.append("off the one process")
+    if any(set(r["backends"].values()) != {"nccl"} for r in ranks):
+        fails.append(f"a group not on NCCL: {r0['backends']}")
+    if any((r["f1"], r["f2"]) != launches for r in ranks):
+        fails.append(f"F1/F2 launches {[(r['f1'], r['f2']) for r in ranks]}"
+                     f", expected {launches}")
+    tps = _per_gpu(tokens, r0["wall"])
+    print(f"{name}: losses {r0['losses'][:NT_CHECKED]} (worst rank, rel "
+          + ", ".join(f"{x:.2e}" for x in loss) + f", limit {loss_lim}), "
+          f"grad_norms rel " + ", ".join(f"{x:.2e}" for x in norm)
+          + f" (limit {norm_lim})"
+          + (f", aux rel " + ", ".join(f"{x:.2e}" for x in aux)
+             + f" (limit {cs.MOE_AUX_REL})" if aux else "")
+          + f"; F1 {r0['f1']} F2 {r0['f2']} per rank over {NT_STEPS} steps; "
+          f"groups {r0['backends']}; per-GPU {tps:.1f} tokens/s"
+          + (f", {tps * flops / cs.BF16_FLOPS:.3f} of the dense bf16 peak"
+             if flops else "")
+          + f"; peak {max(r['peak'] for r in ranks) / 2**30:.2f} GiB; "
+          + f"a profiled step on rank 0: {_fmt_profile(r0['inspect'])}; "
+          + ("ok" if not fails else f"FAILED: {fails}"), flush=True)
+    bad += [f"{name}: {f}" for f in fails]
+    return tps
+
+
+def _nt_kernels(seed):
+    """F1/F2 and P1 at the tp = 4 ranks' head layouts against their plain
+    versions (phase 8a's checks), then timed; returns their rows."""
+    from ray_tpu_torch.models.llama import PRESETS
+
+    positions = [len(p) for p in cs.serving_prompts(
+        PRESETS["llama3_8b"], np.random.default_rng(seed))]
+    rows = {}
+    for label, heads, (b, s), tag in TP4_FLASH:
+        print(f"{label}: heads {heads[0]}/{heads[1]} of {heads[2]}, "
+              f"B={b} S={s}", flush=True)
+        errs = cs.flash_bwd_checks({torch.bfloat16: cs.FLASH_BF16_TOL},
+                                   heads=heads, shapes=((b, s),),
+                                   dtypes=(torch.bfloat16,), train=(b, s),
+                                   tag=tag, oracle=True)
+        rows.update(cs.timing_training(cs.heads_cfg(heads), errs, batch=b,
+                                       seq=s, tag=tag))
+    for label, heads, tag in TP4_PAGED:
+        print(f"{label}: heads {heads[0]}/{heads[1]} of {heads[2]}",
+              flush=True)
+        err = cs.paged_checks(heads=heads, oracle=True)
+        rows["paged_attention" + tag] = cs.paged_row(
+            cs.heads_cfg(heads), positions, err, "paged_attention" + tag)
+    print(f"kernels at the tp={NT_WORLD} shapes: {json.dumps(rows)}",
+          flush=True)
+    return rows
+
+
+def _nt_single(seed, bad):
+    """The one-process runs the ranks are held to, on cuda:0."""
+    t0 = time.time()
+    out = {"bench": cs.rank_train(seed, None, cfg=_nt_bench("flash"),
+                                  steps=NT_STEPS)}
+    single = out["bench"]
+    out["tps"] = 16 * 2048 / (sum(single["wall"][NT_CHECKED:])
+                              / (NT_STEPS - NT_CHECKED))
+    flops = _nt_bench("flash").flops_per_token(2048)
+    print(f"bench in one process: losses {single['losses']}, grad_norms "
+          f"{single['norms']}, F1 {single['f1']} F2 {single['f2']}; "
+          f"{out['tps']:.1f} tokens/s, "
+          f"{out['tps'] * flops / cs.BF16_FLOPS:.3f} of the dense bf16 peak "
+          f"(phase 4: 62.8k, PERF.md)", flush=True)
+    n_bench = _nt_bench("flash").n_layers * NT_STEPS
+    if (single["f1"], single["f2"]) != (n_bench, n_bench):
+        bad.append(f"one process: F1 {single['f1']} F2 {single['f2']}, "
+                   f"expected one per layer and step, {n_bench}")
+    out["pipeline"] = cs.pipeline_single(seed)
+    print(f"pipeline in one process: loss {out['pipeline']['loss']:.6f}, F1 "
+          f"{out['pipeline']['f1']} F2 {out['pipeline']['f2']}, "
+          f"{out['pipeline']['wall']:.2f} s", flush=True)
+    out["moe"] = cs.rank_train(seed, None, cfg=_nt_moe(), steps=NT_STEPS)
+    print(f"moe_bench in one process: losses {out['moe']['losses']}, aux "
+          f"{out['moe']['aux']}, F1 {out['moe']['f1']} F2 "
+          f"{out['moe']['f2']}", flush=True)
+    print(f"one-process runs took {time.time() - t0:.1f} s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _nt_ranks(seed, one, bad):
+    """One NCCL rank per card: every mesh run against ``one`` (the
+    one-process runs); returns per-GPU tokens/s by mesh."""
+    from ray_tpu_torch.models.llama import PRESETS, init_params
+
+    t0 = time.time()
+    ranks = cs.run_ranks(_nccl_train_rank, (seed,), world=NT_WORLD,
+                         backend="nccl", timeout=1500)
+    print(f"{NT_WORLD} NCCL ranks ran in {time.time() - t0:.1f} s", flush=True)
+    if [r["device"] for r in ranks] != list(range(NT_WORLD)) or {
+            r["default"] for r in ranks} != {"nccl"}:
+        bad.append(f"ranks' devices {[r['device'] for r in ranks]}, default "
+                   f"groups {[r['default'] for r in ranks]}")
+    single = one["bench"]
+    bench_flops = _nt_bench("flash").flops_per_token(2048)
+    tps = {}
+    for name, (_, impl) in NT_MESHES.items():
+        # One F1 and one F2 per layer and step, as in one process; the
+        # ring's blocks launch none.
+        launches = (0, 0) if impl == "ring" else (single["f1"], single["f2"])
+        tps[name] = _check_mesh_run(name, [r[name] for r in ranks], single,
+                                    bad, 16 * 2048, bench_flops, launches)
+    pipe = [r["pp=4"] for r in ranks]
+    pipe_fails = []
+    for i, r in enumerate(pipe):
+        text, ok = cs.phase9_readings("pipeline", r, one["pipeline"])
+        if not ok:
+            pipe_fails.append(f"rank {i}: {text}")
+    # Each rank runs (M + P - 1) microbatch steps of its 6 layers.
+    n_pipe = (cs.PIPE_MICRO + NT_WORLD - 1) * (
+        _nt_bench("flash").n_layers // NT_WORLD)
+    if any((r["f1"], r["f2"]) != (n_pipe, n_pipe) for r in pipe):
+        pipe_fails.append(f"F1/F2 {[(r['f1'], r['f2']) for r in pipe]}, "
+                          f"expected {n_pipe} each")
+    if any(set(r["backends"].values()) != {"nccl"} for r in pipe):
+        pipe_fails.append(f"groups {pipe[0]['backends']}")
+    walls = pipe[0]["walls"][1:]
+    tps["pp=4"] = 16 * 2048 / (sum(walls) / len(walls)) / NT_WORLD
+    print(f"pp=4: {cs.phase9_readings('pipeline', pipe[0], one['pipeline'])[0]}"
+          f"; F1 {pipe[0]['f1']} F2 {pipe[0]['f2']} per rank; groups "
+          f"{pipe[0]['backends']}; per-GPU {tps['pp=4']:.1f} tokens/s "
+          f"(forward and backward, no optimizer), "
+          f"{tps['pp=4'] * bench_flops / cs.BF16_FLOPS:.3f} of the peak; "
+          + ("ok" if not pipe_fails else f"FAILED: {pipe_fails}"),
+          flush=True)
+    bad += [f"pp=4: {f}" for f in pipe_fails]
+    _check_mesh_run("moe ep=4", [r["moe ep=4"] for r in ranks], one["moe"],
+                    bad, 16 * 2048, None, (one["moe"]["f1"], one["moe"]["f2"]))
+
+    llama = PRESETS["llama3_8b"]
+    sv = [r["serve tp=4"] for r in ranks]
+    serve_fails = []
+    if any(r["outs"] != sv[0]["outs"] for r in sv):
+        serve_fails.append("the ranks emitted different streams")
+    if not all(len(o) == 32 for o in sv[0]["outs"]):
+        serve_fails.append("a request did not finish with 32 tokens")
+    for r in sv:
+        if r["kv_heads"] != llama.n_kv_heads // NT_WORLD:
+            serve_fails.append(f"a rank's pool holds {r['kv_heads']} KV heads")
+        if r["launches"] != llama.n_layers * r["decode_steps"]:
+            serve_fails.append(f"P1 {r['launches']} for {r['decode_steps']} "
+                               f"decode steps")
+    params = init_params(llama, seed, device="cuda", dtype=llama.dtype)
+    prompts = cs.serving_prompts(llama, np.random.default_rng(seed))
+    try:
+        cs.stream_check(llama, params, prompts, sv[0]["outs"], "tp=4 greedy")
+    except cs.SmokeFailure as e:
+        serve_fails.append(str(e))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"serve llama3_8b tp={NT_WORLD}: {sv[0]['decode_steps']} decode "
+          f"steps, P1 {[r['launches'] for r in sv]} per rank, "
+          f"{sv[0]['kv_heads']} KV heads per rank, decode "
+          f"{sv[0]['decode_tps']:.1f} tokens/s "
+          f"({sv[0]['decode_tps'] / NT_WORLD:.1f} per GPU), peak "
+          f"{max(r['peak'] for r in sv) / 2**30:.2f} GiB; decode steps "
+          f"profiled on rank 0: {_fmt_profile(sv[0]['inspect'])}; "
+          + ("ok" if not serve_fails else f"FAILED: {serve_fails}"),
+          flush=True)
+    bad += [f"serve tp=4: {f}" for f in serve_fails]
+    return tps
+
+
+def nccl_train(seed=0) -> int:
+    """nccl-train: the sharded paths over NCCL, one process per card. Each
+    part runs whatever the one before it did; every failure is listed."""
+    from ray_tpu_torch import _build
+    from ray_tpu_torch._private.accelerators.gpu import GPUAcceleratorManager
+
+    n = torch.cuda.device_count()
+    if n < NT_WORLD:
+        raise RuntimeError(f"nccl-train needs {NT_WORLD} cards; this machine "
+                           f"has {n}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.time()
+    print(f"{n} cards; card ids {GPUAcceleratorManager().detect_ids()}; "
+          f"CUDA_VISIBLE_DEVICES "
+          f"{os.environ.get('CUDA_VISIBLE_DEVICES')!r}", flush=True)
+    bad = []
+    _build.build()
+    print(f"kernels built in {time.time() - t_start:.1f} s", flush=True)
+
+    def part(name, fn, *args):
+        t0 = time.time()
+        try:
+            return fn(*args)
+        except Exception as e:  # noqa: BLE001 - listed, and the mode fails
+            bad.append(f"{name}: {type(e).__name__}: {str(e)[:3000]}")
+            print(f"{name} FAILED: {type(e).__name__}: {e}", flush=True)
+        finally:
+            print(f"{name} took {time.time() - t0:.1f} s", flush=True)
+
+    part("kernels", _nt_kernels, seed)
+    one = part("one process", _nt_single, seed, bad)
+    tps = part("ranks", _nt_ranks, seed, one, bad) if one else None
+    if tps:
+        print("per-GPU train tokens/s: " + json.dumps(
+            {**{k: round(v, 1) for k, v in tps.items()},
+             "one process (this run)": round(one["tps"], 1),
+             "phase 4 (PERF.md)": 62790.0}), flush=True)
+    part("fit", nccl_fit, seed, bad)
+    print(f"nccl-train took {time.time() - t_start:.1f} s")
+    print(f"failures: {bad}")
+    return 1 if bad else 0
+
+
 # --------------------------------------------------------- kernel faults
 # (source file, wrapper's kernel getter, {fault: (sound text, faulty text)})
 KERNEL_FAULTS = {
@@ -642,7 +1262,8 @@ def train_faults(seed=0) -> int:
               + ", ".join(f"{k} {v}" for k, v in single[name].items()
                           if k in ("loss", "losses", "aux", "norms")),
               flush=True)
-    ranks = cs.run_two_ranks(_train_runs, (seed,), timeout=2400)
+    ranks = cs.run_ranks(_train_runs, (seed,), world=2, backend="gloo",
+                         timeout=2400)
     caught = {fault: False for fault in TRAIN_FAULTS}
     bad = []
     for key in TRAIN_RUNS:
@@ -678,7 +1299,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("what", choices=("gloo", "kernel-faults",
                                      "train-faults", "nccl",
-                                     "nccl-ranks"))
+                                     "nccl-ranks", "nccl-train"))
     what = ap.parse_args().what
     if not torch.cuda.is_available():
         print("sharded_chip: no CUDA device", file=sys.stderr)
@@ -686,7 +1307,7 @@ def main() -> int:
     print(cs.card_line())
     return {"gloo": gloo, "kernel-faults": kernel_faults,
             "train-faults": train_faults, "nccl": nccl,
-            "nccl-ranks": nccl_ranks}[what]()
+            "nccl-ranks": nccl_ranks, "nccl-train": nccl_train}[what]()
 
 
 if __name__ == "__main__":

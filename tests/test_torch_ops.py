@@ -196,7 +196,8 @@ def test_spawned_test_modules_import_no_jax_at_top_level():
              "test_torch_showcase.py", "test_torch_multislice.py",
              "test_torch_ckpt_manifest.py", "test_torch_resnet.py",
              "test_torch_rl_dp.py", "test_torch_tp_heads.py",
-             "test_torch_showcase_loop.py", "torch_spawn_util.py")
+             "test_torch_showcase_loop.py", "test_torch_parallel_four.py",
+             "torch_spawn_util.py")
     for name in names:
         tree = ast.parse((REPO / "tests" / name).read_text())
         for node in tree.body:

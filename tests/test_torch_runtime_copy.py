@@ -82,7 +82,6 @@ COPIED = (
     "llm/serve_integration.py",
     "runtime/__init__.py",
     "runtime/agent.py",
-    "runtime/core_worker.py",
     "runtime/drain.py",
     "runtime/head.py",
     "runtime/head_storage.py",
@@ -275,8 +274,30 @@ PORTED = {
     "runtime/node.py": (
         "an idle node's keepalive comes three times per HEALTH_TIMEOUT_S "
         "(the source's fixed 5 s lets a head with a shorter timeout reap "
-        "a live node between two)",
-        {"NodeManager._heartbeat_loop"},
+        "a live node between two); a GPU lease is bound to cards of its "
+        "own (per-card shares, bundles holding theirs, the lease reply "
+        "naming them), its worker started with CUDA_VISIBLE_DEVICES (or "
+        "an idle CPU worker without a CUDA driver rebound to the cards) "
+        "and idle workers pooled by runtime env and card set",
+        {"NodeManager._heartbeat_loop", "_SHARE_DIGITS", "node_gpu_ids",
+         "fit_cards", "_move_shares", "_card_env", "pool_key", "Lease",
+         "NodeManager.__init__", "NodeManager._spawn_worker",
+         "NodeManager._spawn_worker_cpp", "NodeManager._spawn_worker_inproc",
+         "NodeManager._feasible",
+         "NodeManager._available", "NodeManager._get_worker",
+         "NodeManager._rebind_idle",
+         "NodeManager._grant_lease", "NodeManager._end_lease",
+         "NodeManager._offer_worker", "NodeManager._on_lease_worker",
+         "NodeManager._on_return_lease", "NodeManager._on_reserve_bundle",
+         "NodeManager._on_free_bundle",
+         "NodeManager._release_worker_leases", "NodeManager._kill_worker",
+         "NodeManager._drain_pending", "NodeManager._fulfil",
+         "NodeManager._reap_loop"},
+    ),
+    "runtime/core_worker.py": (
+        "an idle CPU worker that never loaded the CUDA driver takes a GPU "
+        "lease's cards into its environment when the node asks",
+        {"_cuda_driver_loaded", "CoreWorker._on_bind_cards"},
     ),
     "runtime/memory.py": (
         "the memory plane samples the CUDA caching allocator, in a process "
@@ -420,7 +441,8 @@ PORTED = {
         "TorchTrainer: GPU scaling, a NCCL collective group and a default "
         "torch.distributed group per worker, no jax platform or watch",
         {"import os", "import tempfile", "ScalingConfig", "RunConfig",
-         "_init_default_process_group", "TrainWorker", "JaxTrainer",
+         "_init_default_process_group", "_bind_leased_cards",
+         "TrainWorker", "JaxTrainer",
          "TorchTrainer"},
     ),
     "tune/sweep.py": (
